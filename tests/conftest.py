@@ -39,3 +39,10 @@ def tiny_data():
     base = rng.standard_normal((512, 32)).astype(np.float32)
     queries = rng.standard_normal((16, 32)).astype(np.float32)
     return base, queries
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's hand-written kernels); skips "
+        "without one")
