@@ -4,23 +4,40 @@
     python3 chip_smoke.py
 
 from the root of the repository. It builds the port's CUDA kernels from
-``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``) and runs
-five phases, printing progress as it goes:
+``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``, one
+``nvcc`` per source, all at once) and runs six phases, printing progress as
+it goes:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc
    versions;
 2. build of the kernels, timed;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (n = 1M codes, M = 32, C = 256, d = 128, 512 queries,
-   128-row windows; the rescore at 512 × 200 candidates), timed with CUDA
-   events after a warm-up;
-4. the main path at SIFT1M shape, 1M × 128-d, ``VAQ256m32min7max8var1,HEAP``
-   on seeded synthetic data: train, encode, search on the decoded and on the
-   codes tier (k = 100), then search 200 and refine to 100, with times, QPS,
-   peak device memory and recall against exact groundtruth; the kernel launch
-   counters must move during this phase;
-5. one index state searched on the card and through the port's CPU plain
-   versions at n = 20k; the answers must agree.
+   paths' shapes, timed with CUDA events after a warm-up, beside its bound
+   (bytes over 3.35 TB/s or operations over the peak rate of their type,
+   the larger) and one PyTorch call doing its dominant product where there
+   is one: K1/K2 at n = 1M codes, M = 32, C = 256, d = 128, 512 queries,
+   128-row windows, the rescore at 512 × 200 candidates; K5 over the 1M
+   probe buckets (1000 clusters of 1536 rows, 112 query slots, gs = 8) with
+   int8 rows, at d = 96 (the shape of JAX's transposed K6) and with bf16
+   rows; K7 at 512 queries × 200 windows of 8 rows, int8 and bf16, d = 128
+   and 96 (K8);
+4. the codes path at SIFT1M shape, 1M × 128-d,
+   ``VAQ256m32min7max8var1,HEAP`` on seeded synthetic data: train, encode,
+   search on the decoded and on the codes tier (k = 100), then search 200
+   and refine to 100, with times, QPS, peak device memory and recall against
+   exact groundtruth; K1/K2's launch counters are zeroed just before it and
+   must have moved just after;
+5. the TI/IVF path on the same index: ``attach_ivf`` with 1000 clusters
+   over 16 subspaces (``bench.py:642-643``), searches at visit 0.25, 0.10,
+   0.05 (the reference's Fig. 11 sweep) and 1.0, k = 100, and one search on
+   the int8 ``decoded8`` tier, with the same numbers, a ``torch.profiler``
+   split of one visit-0.1 batch by stage, and K5/K7's counters zeroed just
+   before and read just after; at visit 1.0 the probe must reach the
+   decoded tier's recall within 0.03;
+6. one index state searched on the card and through the port's CPU plain
+   versions at n = 20k (the decoded and codes tiers, refine, and an IVF
+   state built on the card and copied to the CPU, at d = 128 and d = 96);
+   the answers must agree.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are a JSON object of per-kernel numbers and the card's
@@ -50,6 +67,15 @@ RTOL_KERNEL = 1e-5   # f32 sums in another order: last-bit differences
 RTOL_K1_SCORES = RTOL_KERNEL + 2.0 ** ((KC_BR - 1).bit_length() - 23)
 N_CMP, NQ_CMP, K_CMP = 20_000, 200, 10
 DEVICE = "cuda"
+# The probe buckets of the 1M index (attach_ivf at 1000 clusters: capacity
+# ceil(1.5·1M/1000) rounded to 512) and the slots pick_qcap(512, 100, 1000)
+# gives at visit 0.1; K7 at 512 queries × m = 200 windows of gs = 8 rows.
+KC_NCL, KC_CAP, KC_QCAP, KC_GS, KC_WIN = 1000, 1536, 112, 8, 200
+TI_CLUSTERS, TI_SEGMENTS = 1000, 16       # bench.py:642-643
+VISITS = (0.25, 0.10, 0.05, 1.0)          # Fig. 11 (ExperimentsParameters.txt:114-124), then all
+# Published H100 SXM peaks (NVIDIA data sheet), for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -71,6 +97,11 @@ def phase_environment() -> str:
         f"device {torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
     log(f"[env] nvcc: {nvcc}")
     return smi
+
+
+def _clocks() -> str:
+    return _run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+                 "temperature.gpu", "--format=csv,noheader"]).splitlines()[0]
 
 
 def phase_build() -> float:
@@ -101,8 +132,156 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate
+    or operations over the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
+
+
+def _assert_within_terms(got, ref, scale, what, rtol=RTOL_KERNEL):
+    """Same finite pattern, and |got − ref| ≤ rtol · scale elementwise,
+    ``scale`` being the size of the terms each result sums (f64)."""
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), fin), f"{what}: finite pattern"
+    err = ((got[fin] - ref[fin]).double().abs() / scale[fin]).max()
+    assert float(err) <= rtol, f"{what}: {float(err):.3g} of the terms"
+    return float((got[fin] - ref[fin]).abs().max())
+
+
+def _groupmin_scale(qsl, rows, w, ncl, cap, gs, chunk=100):
+    """Per (cluster, slot, group): Σ_d|qsl_d·x_d| + Σ w·x² + qn at the
+    group's smallest row, in f64 — the size of the terms K5 sums."""
+    qcap, d = qsl.shape[1:]
+    out = torch.empty((ncl, qcap, cap // gs), dtype=torch.float64,
+                      device=qsl.device)
+    wd = w.double()
+    for c0 in range(0, ncl, chunk):
+        qf = qsl[c0:c0 + chunk].double()
+        r = rows.view(ncl, cap, d)[c0:c0 + chunk].double()
+        xn = (r * r * wd).sum(2)[:, None, :]
+        qn = 0.25 * (qf * qf).sum(2)[:, :, None]
+        dist = torch.bmm(qf, r.transpose(1, 2)) + xn + qn
+        size = torch.bmm(qf.abs(), r.abs().transpose(1, 2)) + xn + qn
+        at = dist.view(qf.shape[0], qcap, -1, gs).argmin(3, keepdim=True)
+        out[c0:c0 + chunk] = size.view(qf.shape[0], qcap, -1, gs).gather(
+            3, at)[..., 0]
+    return out
+
+
+def _rescore_scale(q, w, rows, wblk, gs, chunk=64):
+    """Per score: 2·Σ_d|q_d·x_d| + Σ w·x², q rounded to bf16, in f64 — the
+    size of the terms K7 sums."""
+    qb = q.to(torch.bfloat16).double()
+    d = rows.shape[1]
+    out = torch.empty(wblk.shape + (gs,), dtype=torch.float64, device=q.device)
+    for q0 in range(0, q.shape[0], chunk):
+        blk = rows.view(-1, gs, d)[wblk[q0:q0 + chunk].long()].double()
+        out[q0:q0 + chunk] = (2 * torch.einsum("qd,qmgd->qmg", qb[q0:q0 + chunk].abs(),
+                                               blk.abs())
+                              + torch.einsum("qmgd,d->qmg", blk * blk, w.double()))
+    return out
+
+
+def _probe_rows(gen, d, dtype):
+    """The 1M probe buckets' shape filled with seeded rows: int8 of scale 32
+    (w = 1/32²) or their bf16 values (w = 1); the last 3 slots of each bucket
+    hold padding (the int8 poison pattern / the 1e15 bf16 sentinel)."""
+    from vaq_tpu_torch.ops import probe_scan
+    dev = torch.device(DEVICE)
+    x = torch.randn((KC_NCL, KC_CAP, d), generator=gen, device=dev) * 32.0
+    x = torch.clamp(torch.round(x), -127, 127)
+    if dtype == "int8":
+        x = x.to(torch.int8)
+        x[:, -3:] = torch.as_tensor(probe_scan.poison_pattern(d), device=dev)
+        w = torch.full((d,), 1.0 / 1024.0, device=dev)
+    else:
+        x = x.to(torch.bfloat16)
+        x[:, -3:] = 1e15
+        w = torch.ones((d,), device=dev)
+    return x.view(KC_NCL * KC_CAP, d), w
+
+
+def _check_groupmin(gen, d: int, dtype: str) -> dict:
+    """K5 against its plain version over the 1M probe buckets, all slots
+    occupied; tolerance 1e-5 of the terms summed (bf16 × int8/bf16 products
+    are exact in f32; only the order of the sums differs)."""
+    from vaq_tpu_torch.ops import probe_scan
+    dev = torch.device(DEVICE)
+    rows, w = _probe_rows(gen, d, dtype)
+    qsl = (-2.0 * torch.randn((KC_NCL, KC_QCAP, d), generator=gen,
+                              device=dev)).to(torch.bfloat16)
+    args = (qsl, rows, w, KC_NCL, KC_CAP, KC_GS)
+    got = probe_scan.groupmin_window_scan(*args)
+    ref = probe_scan.groupmin_window_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (KC_NCL, KC_QCAP, KC_CAP // KC_GS)
+    err = _assert_within_terms(got, ref, _groupmin_scale(*args),
+                               f"K5 d={d} {dtype}")
+    ms = _time_ms(lambda: probe_scan.groupmin_window_scan(*args), 10)
+    plain = _time_ms(lambda: probe_scan.groupmin_window_scan_ref(*args), 3)
+    rows_bf = rows.view(KC_NCL, KC_CAP, d).to(torch.bfloat16).transpose(1, 2)
+    library = _time_ms(lambda: torch.bmm(qsl, rows_bf), 10)
+    ng = KC_CAP // KC_GS
+    nbytes = (rows.numel() * rows.element_size() + qsl.numel() * 2 + d * 4
+              + KC_NCL * KC_QCAP * ng * 4)
+    ops = 2.0 * KC_NCL * KC_QCAP * KC_CAP * d + 3.0 * KC_NCL * KC_CAP * d
+    bound = _bound(nbytes, ops, "bf16")
+    log(f"[kernels] K5 groupmin_window_scan d={d} {dtype} rows: max|Δ| "
+        f"{err:.3g}, kernel {ms:.3f} ms, plain {plain:.3f} ms, bf16 bmm "
+        f"{library:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    k6 = d % 128 != 0
+    return _entry("groupmin_window_scan" + (f"_d{d}" if k6 else "")
+                  + ("" if dtype == "int8" else "_bf16"),
+                  "vaq_tpu_torch/csrc/groupmin_window_scan.cu",
+                  "vaq_tpu/ops/probe_pallas.py:" + ("205" if k6 else "158"),
+                  err, ms, plain, bound, library)
+
+
+def _check_rescore(gen, d: int, dtype: str) -> dict:
+    """K7 against its plain version: 512 queries × 200 windows of 8 rows
+    drawn from the 1M probe buckets; tolerance 1e-5 of the terms summed."""
+    from vaq_tpu_torch.ops import rescore
+    dev = torch.device(DEVICE)
+    rows, w = _probe_rows(gen, d, dtype)
+    n_blk = rows.shape[0] // KC_GS
+    q = torch.randn((KC_NQ, d), generator=gen, device=dev)
+    wblk = torch.randint(0, n_blk, (KC_NQ, KC_WIN), generator=gen, device=dev,
+                         dtype=torch.int32)
+    args = (q, w, rows, wblk, KC_GS)
+    got = rescore.gather_rescore(*args)
+    ref = rescore.gather_rescore_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (KC_NQ, KC_WIN, KC_GS)
+    err = _assert_within_terms(got, ref, _rescore_scale(*args),
+                               f"K7 d={d} {dtype}")
+    ms = _time_ms(lambda: rescore.gather_rescore(*args), 20)
+    plain = _time_ms(lambda: rescore.gather_rescore_ref(*args), 5)
+    gathered = KC_NQ * KC_WIN * KC_GS * d
+    nbytes = (gathered * rows.element_size() + q.numel() * 4 + d * 4
+              + wblk.numel() * 4 + got.numel() * 4)
+    bound = _bound(nbytes, 4.0 * gathered, "bf16")
+    log(f"[kernels] K7 gather_rescore d={d} {dtype} rows: max|Δ| {err:.3g}, "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]})")
+    k8 = d % 128 != 0
+    return _entry("gather_rescore" + (f"_d{d}" if k8 else "")
+                  + ("" if dtype == "int8" else "_bf16"),
+                  "vaq_tpu_torch/csrc/gather_rescore.cu",
+                  "vaq_tpu/ops/rescore_pallas.py:" + ("39" if k8 else "105"),
+                  err, ms, plain, bound, None)
+
+
 def phase_kernels() -> list[dict]:
-    """K1 and K2 against their plain versions on the card."""
+    """Every kernel against its plain version on the card."""
     from vaq_tpu_torch.ops import scan_codes
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
@@ -123,9 +302,10 @@ def phase_kernels() -> list[dict]:
     torch.testing.assert_close(s_k, s_r, rtol=RTOL_K1_SCORES, atol=1e-5)
     diff = (i_k != i_r).nonzero()
     if len(diff):
-        # ids may differ only where the two rows tie to within RTOL_KERNEL
-        # (the kernel and the plain version sum in different orders): score
-        # both rows in f64 with the kernel's own formula
+        # ids may differ only where the two rows tie to within one packed-key
+        # step (the kernel and the plain version sum in different orders,
+        # and the key keeps 23 − idx_bits mantissa bits): score both rows in
+        # f64 with the kernel's own formula
         q64 = qp.to(torch.bfloat16).double()
         qn = (qp * qp).sum(1).double()
         tbl = table.double().reshape(KC_C, KC_M, KC_L)
@@ -137,15 +317,25 @@ def phase_kernels() -> list[dict]:
 
         a = score(torch.stack([diff[:, 0], i_k[diff[:, 0], diff[:, 1]]], 1))
         b = score(torch.stack([diff[:, 0], i_r[diff[:, 0], diff[:, 1]]], 1))
-        assert torch.all((a - b).abs() <= RTOL_KERNEL * b.abs() + 1e-5), \
+        assert torch.all((a - b).abs() <= RTOL_K1_SCORES * b.abs() + 1e-5), \
             "K1 winners differ beyond a tie"
     k1_err = float((s_k - s_r).abs().max())
     k1_ms = _time_ms(lambda: scan_codes.decode_window_scan(codes, table, qp, KC_BR), 10)
     k1_plain = _time_ms(
         lambda: scan_codes.decode_window_scan_ref(codes, table, qp, KC_BR), 3)
+    # the library yardstick: one bf16 GEMM of the queries against the
+    # decoded rows (decoded outside the timing)
+    dec = table.view(KC_C, KC_M, KC_L)[codes.long(), torch.arange(KC_M, device=dev)]
+    dec_t = dec.reshape(KC_N, d).T
+    q_bf = qp.to(torch.bfloat16)
+    k1_lib = _time_ms(lambda: torch.matmul(q_bf, dec_t), 10)
+    del dec, dec_t
+    k1_bound = _bound(KC_N * KC_M + table.numel() * 2 + qp.numel() * 4
+                      + s_k.numel() * 4, 2.0 * KC_NQ * KC_N * d, "bf16")
     log(f"[kernels] K1 decode_window_scan: max|Δscore| {k1_err:.3g}, "
         f"{len(diff)} id ties of {i_k.numel()}, kernel {k1_ms:.3f} ms, "
-        f"plain {k1_plain:.3f} ms")
+        f"plain {k1_plain:.3f} ms, bf16 matmul {k1_lib:.3f} ms, bound "
+        f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
 
     # K2
     cand = torch.as_tensor(rng.integers(0, KC_N, (KC_NQ, KC_KK), dtype=np.int32),
@@ -159,18 +349,28 @@ def phase_kernels() -> list[dict]:
     k2_err = float((o_k[:, :-3] - o_r[:, :-3]).abs().max())
     k2_ms = _time_ms(lambda: scan_codes.decode_rescore(codes, cand, rows, qp), 20)
     k2_plain = _time_ms(lambda: scan_codes.decode_rescore_ref(codes, cand, rows, qp), 5)
+    n_cand = KC_NQ * KC_KK
+    k2_bound = _bound(n_cand * (KC_M + 4 + 4) + rows.numel() * 4 + qp.numel() * 4,
+                      3.0 * n_cand * d, "f32")
     log(f"[kernels] K2 decode_rescore: max|Δ| {k2_err:.3g}, kernel {k2_ms:.3f} ms, "
-        f"plain {k2_plain:.3f} ms")
-    return [
-        {"name": "decode_window_scan", "route": "cuda",
-         "source": "vaq_tpu_torch/csrc/decode_window_scan.cu",
-         "replaces": "vaq_tpu/ops/scan_pallas.py:283",
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "decode_rescore", "route": "cuda",
-         "source": "vaq_tpu_torch/csrc/decode_rescore.cu",
-         "replaces": "vaq_tpu/ops/scan_pallas.py:477",
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+        f"plain {k2_plain:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    del codes, cand
+    kernels = [
+        _entry("decode_window_scan", "vaq_tpu_torch/csrc/decode_window_scan.cu",
+               "vaq_tpu/ops/scan_pallas.py:283", k1_err, k1_ms, k1_plain,
+               k1_bound, k1_lib),
+        _entry("decode_rescore", "vaq_tpu_torch/csrc/decode_rescore.cu",
+               "vaq_tpu/ops/scan_pallas.py:477", k2_err, k2_ms, k2_plain,
+               k2_bound, None),
     ]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
+        kernels.append(_check_groupmin(gen, d_k, dtype))
+        torch.cuda.empty_cache()
+    for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
+        kernels.append(_check_rescore(gen, d_k, dtype))
+        torch.cuda.empty_cache()
+    return kernels
 
 
 def _step(name: str, fn, nq: int | None = None):
@@ -187,7 +387,9 @@ def _step(name: str, fn, nq: int | None = None):
     return out
 
 
-def phase_main_path() -> dict:
+def phase_main_path() -> tuple[dict, dict]:
+    """The codes path; returns K1/K2's launches and what the IVF path
+    reuses (the index, its data, the groundtruth, the decoded recall)."""
     import vaq_tpu_torch as vt
     from vaq_tpu_torch import data, metrics
     from vaq_tpu_torch.ops import distances, scan_codes
@@ -202,12 +404,12 @@ def phase_main_path() -> dict:
         NQ_MAIN)
     gt = gt.cpu().numpy()
 
-    scan_codes.decode_window_scan.launches = 0
-    scan_codes.decode_rescore.launches = 0
     idx = vt.VAQIndex(vt.parse_method_string(METHOD), device=dev)
     _step("train", lambda: idx.train(base, verbose=True))
     log(f"[main] bits {idx.bits.tolist()}")
     _step("encode", lambda: idx.encode(base))
+    scan_codes.decode_window_scan.launches = 0
+    scan_codes.decode_rescore.launches = 0
     _step("search decoded k=100 (first call builds the decoded db)",
           lambda: idx.search(queries, 100, backend="decoded"), NQ_MAIN)
     _, l_dec = _step("search decoded k=100",
@@ -237,7 +439,140 @@ def phase_main_path() -> dict:
     assert np.isfinite(d_ref).all() and (l_ref >= 0).all()
     assert top1 >= 0.9, top1
     assert r_ref >= r_dec, (r_ref, r_dec)
+    return launches, {"idx": idx, "queries": queries, "gt": gt, "r_dec": r_dec}
+
+
+def _device_split(prof, names) -> tuple[dict, float]:
+    """(device ms of the kernels and copies inside each profiler range, as
+    the ranges' spans on the device timeline place them, plus "other" for
+    the rest; the device's busy ms). The ranges' own device spans include
+    the gaps between their kernels, so they are not summed themselves."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(ev.name, ev.time_range.start, ev.time_range.end)
+             for ev in prof.events() if ev.device_type == cuda and ev.name in names]
+    out = {n: 0.0 for n in (*names, "other")}
+    for ev in prof.events():
+        if ev.device_type != cuda or ev.name in names:
+            continue
+        stage = next((n for n, t0, t1 in spans
+                      if t0 <= ev.time_range.start < t1), "other")
+        out[stage] += ev.time_range.elapsed_us() / 1e3
+    return out, sum(out.values())
+
+
+def _dispatch_counts(idx, queries, k: int) -> tuple[int, int]:
+    """(active, dispatched) (query, cluster) entries of one probe batch: the
+    static qcap drops the difference (vaq_tpu/ops/probe.py:139-144)."""
+    from vaq_tpu_torch import pca
+    from vaq_tpu_torch.ops import probe
+    st = idx.ivf.state
+    p_visit, p_max, qcap, _ = idx.ivf.params(k, len(queries))
+    qp = pca.project(torch.as_tensor(queries, device=DEVICE), idx._eigvecs_device())
+    cents = torch.as_tensor(st.centroids, device=DEVICE)
+    cd = probe.cluster_sq_dists(qp[:, :st.seg_dims], cents)
+    pr, active = probe.dynamic_probe(cd, st.sizes, k, p_visit, p_max)
+    _, ok, _, _ = probe.dispatch_table(pr, active, st.ncl, min(qcap, len(queries)))
+    return int(active.sum()), int(ok.sum())
+
+
+def phase_ivf_path(ctx: dict) -> dict:
+    """The TI/IVF path on the 1M index; returns K5/K7's launches."""
+    from vaq_tpu_torch import ivf, metrics
+    from vaq_tpu_torch.ops import probe_scan, rescore
+    idx, queries, gt = ctx["idx"], ctx["queries"], ctx["gt"]
+    probe_scan.groupmin_window_scan.launches = 0
+    rescore.gather_rescore.launches = 0
+    _step(f"attach_ivf ({TI_CLUSTERS} clusters over {TI_SEGMENTS} subspaces)",
+          lambda: ivf.attach_ivf(idx, verbose=True, ti_cluster_num=TI_CLUSTERS,
+                                 ti_segment_num=TI_SEGMENTS))
+    assert idx.config.ti_cluster_num == -1  # the overrides leave it as it was
+    recalls = {}
+    for visit in VISITS:
+        idx.ivf.visit = visit
+        p = idx.ivf.params(100, 512)
+        _step(f"search ivf visit={visit} k=100 (first call)",
+              lambda: idx.search(queries, 100, backend="ivf"), NQ_MAIN)
+        d_ivf, l_ivf = _step(f"search ivf visit={visit} k=100 "
+                             f"(p_visit, p_max, qcap, gs) = {p}",
+                             lambda: idx.search(queries, 100, backend="ivf"),
+                             NQ_MAIN)
+        assert (l_ivf >= 0).all() and np.isfinite(d_ivf).all(), visit
+        recalls[visit] = metrics.avg_recall(l_ivf, gt, 100)
+        active, dispatched = _dispatch_counts(idx, queries[:512], 100)
+        log(f"[ivf] visit={visit}: avg_recall@100 {recalls[visit]:.4f}; first "
+            f"batch: {dispatched} of {active} (query, cluster) entries "
+            f"dispatched, {active - dispatched} dropped by qcap = {p[2]}")
+    launches = {"groupmin_window_scan": probe_scan.groupmin_window_scan.launches,
+                "gather_rescore": rescore.gather_rescore.launches}
+    log(f"[ivf] kernel launches during the IVF path: {launches}")
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the IVF path"
+    gap = abs(recalls[1.0] - ctx["r_dec"])
+    log(f"[ivf] visit 1.0 vs decoded avg_recall@100: {recalls[1.0]:.4f} vs "
+        f"{ctx['r_dec']:.4f} (|Δ| {gap:.4f})")
+    assert gap < 0.03, (recalls[1.0], ctx["r_dec"])
+
+    # the stage split of one 512-query batch at visit 0.1
+    idx.ivf.visit = 0.10
+    qb = queries[:512]
+    idx.search(qb, 100, backend="ivf")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        idx.search(qb, 100, backend="ivf")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    stages = ("ivf.probe", "ivf.groupmin", "ivf.merge", "ivf.rescore",
+              "ivf.second_stage")
+    split, busy = _device_split(prof, stages)
+    log(f"[ivf] visit 0.1, one 512-query batch: wall {wall:.3f} ms, device "
+        f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%); device ms by stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    log("[ivf] top device ops:\n" + prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=12))
+
+    d8, l8 = _step("search decoded8 k=100 (first call builds the int8 db)",
+                   lambda: idx.search(queries, 100, backend="decoded8"), NQ_MAIN)
+    d8, l8 = _step("search decoded8 k=100",
+                   lambda: idx.search(queries, 100, backend="decoded8"), NQ_MAIN)
+    r8 = metrics.avg_recall(l8, gt, 100)
+    log(f"[ivf] decoded8 avg_recall@100 {r8:.4f}")
+    assert np.isfinite(d8).all() and (l8 >= 0).all()
+    assert abs(r8 - ctx["r_dec"]) < 0.03, (r8, ctx["r_dec"])
     return launches
+
+
+def _ivf_card_vs_cpu(gpu, cpu, queries, ti_segments: int) -> None:
+    """One IVF state built on the card, copied to the CPU, searched on both
+    with the decoded tier resident (nq ≤ 256: qcap = nq, nothing drops)."""
+    import dataclasses
+
+    from vaq_tpu_torch import ivf
+    ivf.attach_ivf(gpu, ti_cluster_num=64, ti_segment_num=ti_segments,
+                   visit=0.25)
+    st = gpu.ivf.state
+    st_cpu = dataclasses.replace(
+        st, bucket_rows=st.bucket_rows.cpu(), bucket_ids=st.bucket_ids.cpu(),
+        sizes=st.sizes.cpu(), dim_scales=st.dim_scales.cpu())
+    cpu.ivf = ivf.IVFSearcher(st_cpu, 0.25)
+    for idx in (gpu, cpu):
+        idx._ensure_decoded()
+    dg, ig = gpu.search(queries, K_CMP, backend="ivf")
+    dc, ic = cpu.search(queries, K_CMP, backend="ivf")
+    agree = float(np.mean([len(set(ig[q]) & set(ic[q])) / K_CMP
+                           for q in range(len(queries))]))
+    # The probe returns ‖q‖² − score (JAX's formula), a difference of terms
+    # of the size of ‖q‖² that cancels: hold it to 1e-4 of those terms.
+    qp = queries @ cpu.eigvecs[:, :cpu.total_dim]
+    terms = np.abs(dc) + (qp * qp).sum(axis=1)[:, None]
+    rel = float(np.max(np.abs(dg - dc) / terms))
+    log(f"[cmp] ivf d={st.d_full}: top-{K_CMP} id agreement card vs cpu "
+        f"{agree:.4f}, max |Δdist| {float(np.max(np.abs(dg - dc))):.3g} = "
+        f"{rel:.3g} of the terms (max rel Δdist "
+        f"{float(np.max(np.abs(dg - dc) / dc)):.3g})")
+    assert (ig >= 0).all() and agree >= 0.99, agree
+    assert rel <= 1e-4, rel
 
 
 def phase_card_vs_cpu() -> None:
@@ -266,6 +601,15 @@ def phase_card_vs_cpu() -> None:
     dc, ic = cpu.refine(queries, cand, base, K_CMP)
     np.testing.assert_allclose(dg, dc, rtol=1e-4)
     log(f"[cmp] refine: ids equal on {float((ig == ic).mean()):.4f} of entries")
+    _ivf_card_vs_cpu(gpu, cpu, queries, 16)
+    # d = 96, the shape JAX stored transposed for its K6/K8
+    base96, queries96 = data.make_anisotropic_gaussian(N_CMP, 96, NQ_CMP,
+                                                       seed=SEED + 2)
+    m96 = "VAQ192m24min7max8var1,HEAP"
+    trained = vt.VAQIndex(vt.parse_method_string(m96), device=DEVICE).build(base96)
+    arrays, meta = trained.state()
+    _ivf_card_vs_cpu(index_from_numpy(arrays, meta, DEVICE),
+                     index_from_numpy(arrays, meta, "cpu"), queries96, 24)
 
 
 def main() -> int:
@@ -275,11 +619,18 @@ def main() -> int:
         return 2
     smi = phase_environment()
     phase_build()
+    log(f"[kernels] clocks.sm, clocks.max.sm, power.draw, temperature: {_clocks()}")
     kernels = phase_kernels()
-    launches = phase_main_path()
+    log(f"[kernels] clocks.sm, clocks.max.sm, power.draw, temperature: {_clocks()}")
+    launches, ctx = phase_main_path()
+    launches.update(phase_ivf_path(ctx))
+    del ctx
+    torch.cuda.empty_cache()
     phase_card_vs_cpu()
     for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
+        # a d = 96 or bf16 check is the same kernel as its d = 128 int8 one
+        kern["launches"] = next(n for name, n in launches.items()
+                                if kern["name"].startswith(name))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -89,3 +89,59 @@ def test_chip_smoke_alone_fails(tmp_path):
                           env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _entry_points(tmp_path):
+    """Each public entry point that takes a device, called without one, on
+    a small CPU-built state."""
+    import numpy as np
+
+    import vaq_tpu_torch as vt
+    from vaq_tpu_torch import convert, data, pca
+    from vaq_tpu_torch.ops import distances, scan_codes
+
+    x = np.random.default_rng(0).standard_normal((300, 16)).astype(np.float32)
+    idx = vt.VAQIndex(vt.parse_method_string("VAQ16m4min2max4var1,HEAP"),
+                      device="cpu").build(x)
+    idx.save(str(tmp_path / "i.npz"))
+    arrays, meta = idx.state()
+    buckets = {"centroids": np.zeros((2, 4), np.float32), "seg_dims": 4,
+               "cap": 512, "bucket_rows": np.zeros((2, 512, 16), np.int8),
+               "bucket_ids": np.full((2, 512), -1, np.int32),
+               "sizes": np.zeros(2, np.int32),
+               "dim_scales": np.ones(16, np.float32)}
+    return {
+        "VAQIndex": lambda: vt.VAQIndex(idx.config),
+        "VAQIndex.load": lambda: vt.VAQIndex.load(str(tmp_path / "i.npz")),
+        "index_from_numpy": lambda: convert.index_from_numpy(arrays, meta),
+        "ivf_state_from_numpy": lambda: convert.ivf_state_from_numpy(buckets),
+        "make_sift_like": lambda: data.make_sift_like(n=50, n_queries=2,
+                                                      d=16),
+        "compute_groundtruth": lambda: distances.compute_groundtruth(
+            x[:2], x, 5),
+        "build_decode_table": lambda: scan_codes.build_decode_table(
+            idx.centroids),
+        "build_decode_rows": lambda: scan_codes.build_decode_rows(
+            idx.centroids),
+        "train_rotation": lambda: pca.train_rotation(x, 4),
+    }
+
+
+ENTRY_POINTS = ["VAQIndex", "VAQIndex.load", "index_from_numpy",
+                "ivf_state_from_numpy", "make_sift_like", "compute_groundtruth",
+                "build_decode_table", "build_decode_rows", "train_rotation"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_cuda_and_raise_without_it(name, tmp_path,
+                                                           monkeypatch):
+    """The port runs on the card unless the caller asks for the CPU: with
+    no CUDA an entry point called without ``device`` raises DeviceError and
+    never falls back to the CPU."""
+    import torch
+
+    from vaq_tpu_torch.errors import DeviceError
+    call = _entry_points(tmp_path)[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceError, match="device='cpu'"):
+        call()

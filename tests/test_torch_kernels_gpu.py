@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 ``decode_window_scan``, K2
-``decode_rescore``) against their plain PyTorch versions, on a CUDA card.
+``decode_rescore``, K5 ``groupmin_window_scan``, K7 ``gather_rescore``)
+against their plain PyTorch versions, on a CUDA card.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports neither jax nor vaq_tpu, so on the machine with the card it runs
@@ -7,18 +8,23 @@ without them:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q --noconftest
 
-The helpers are shared with tests/test_torch_scan_codes.py, which holds the
+The helpers are shared with tests/test_torch_scan_codes.py,
+test_torch_groupmin.py and test_torch_gather_rescore.py, which hold the
 plain versions against vaq_tpu's Pallas kernels on the CPU. Tolerances: K1's
 scores keep only 23 − idx_bits mantissa bits, so they agree to 1e-5 plus one
 packed-key step, 2^(idx_bits − 23) relative, and window winners agree
-except where two rows tie within that; K2 sums squares: rtol 1e-5.
+except where two rows tie within that; K2 sums squares: rtol 1e-5. K5 and
+K7 multiply bf16 by int8 or bf16 values, products exact in f32, and sum the
+same terms in another order, so they agree to 1e-5 of the size of those
+terms (Σ|products| + norms, ``groupmin_term_scale``/``rescore_term_scale``);
+a score near 0 is a sum of terms of hundreds, and its last bits differ.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vaq_tpu_torch.ops import scan_codes
+from vaq_tpu_torch.ops import probe_scan, rescore, scan_codes
 
 # (M, C, L, n, block_rows), tests/test_scan_pallas.py:147-148
 GEOMETRIES = [(8, 16, 4, 1024, 16), (32, 256, 4, 4096, 64),
@@ -41,7 +47,7 @@ def _k1_rtol(block_rows):
 def _k1_score64(cents, codes, qp, q_idx, row_ids):
     """The K1 quantity in f64 for given (query, row) pairs: bf16-rounded
     decode, bf16 query in the dot, f32 query in ‖q‖²."""
-    table = scan_codes.build_decode_table(cents).double().numpy()
+    table = scan_codes.build_decode_table(cents, "cpu").double().numpy()
     m, c, l = cents.shape
     x = table.reshape(c, m, l)[codes[row_ids].astype(np.int64),
                                np.arange(m)].reshape(len(row_ids), -1)
@@ -105,3 +111,150 @@ def test_decode_rescore_kernel_matches_plain(cuda, geom):
     torch.cuda.synchronize()
     ref = scan_codes.decode_rescore_ref(*args)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def bf16_values(x):
+    """f32 numpy array holding ``x`` rounded to bf16 (round-to-nearest-even)."""
+    return torch.as_tensor(np.asarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def make_rows(n, d, dtype, rng, dead_tail=0, group=None):
+    """(rows, dim_w) as the buckets hold them: int8 rows of scale 32 with
+    w = 1/32², or bf16 rows with w = 1; the last ``dead_tail`` rows of every
+    ``group`` rows hold the int8 poison pattern / the bf16 sentinel."""
+    rows = rng.standard_normal((n, d)).astype(np.float32)
+    if dtype == "int8":
+        rows = np.clip(np.round(rows * 32.0), -127, 127).astype(np.int8)
+        dead = probe_scan.poison_pattern(d)
+        w = np.full((d,), 1.0 / (32.0 * 32.0), np.float32)
+    else:
+        dead = np.full((d,), 1e15, np.float32)
+        w = np.ones((d,), np.float32)
+    if dead_tail:
+        rows.reshape(-1, group, d)[:, -dead_tail:] = dead
+    return (rows if dtype == "int8" else bf16_values(rows)), w
+
+
+def to_rows(rows, device):
+    t = torch.as_tensor(rows, device=device)
+    return t if t.dtype == torch.int8 else t.to(torch.bfloat16)
+
+
+def make_groupmin_inputs(ncl, cap, qcap, d, dtype, seed=0):
+    """K5 inputs as numpy: qsl (ncl, qcap, d) f32 holding bf16 values of
+    −2q, rows (ncl·cap, d), dim_w (d,); three poison slots per bucket."""
+    rng = np.random.default_rng(seed)
+    rows, w = make_rows(ncl * cap, d, dtype, rng, dead_tail=3, group=cap)
+    q = rng.standard_normal((ncl, qcap, d)).astype(np.float32)
+    return bf16_values(-2.0 * q), rows, w
+
+
+def make_rescore_inputs(nq, m, gs, d, nblk, dtype, seed=0):
+    """K7 inputs as numpy: q (nq, d) f32, dim_w (d,), rows (nblk·gs, d),
+    wblk (nq, m) int32 window ids."""
+    rng = np.random.default_rng(seed)
+    rows, w = make_rows(nblk * gs, d, dtype, rng)
+    q = rng.standard_normal((nq, d)).astype(np.float32)
+    wblk = rng.integers(0, nblk, size=(nq, m)).astype(np.int32)
+    return q, w, rows, wblk
+
+
+def assert_scores_close(got, ref, scale=None, rtol=1e-5):
+    """Same finite pattern, and |got − ref| ≤ rtol·scale, the scale being
+    max(|ref|, 1) unless given."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape
+    scale = (np.maximum(np.abs(ref), 1.0) if scale is None
+             else np.broadcast_to(np.asarray(scale, np.float64), ref.shape))
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_array_equal(got[~fin], ref[~fin])
+    err = np.abs(got[fin] - ref[fin]) / scale[fin]
+    assert err.size == 0 or err.max() <= rtol, err.max()
+
+
+def groupmin_term_scale(qsl, rows, w, ncl, cap, gs):
+    """Per (cluster, slot, group): Σ_d|qsl_d·x_d| + Σ w·x² + qn at the
+    group's smallest row, in f64 — the size of the terms K5 sums."""
+    qf = torch.as_tensor(qsl).double()
+    r = torch.as_tensor(np.asarray(rows, np.float64)).view(ncl, cap, -1)
+    w = torch.as_tensor(w).double()
+    xn = (r * r * w).sum(2)[:, None, :]
+    qn = 0.25 * (qf * qf).sum(2)[:, :, None]
+    dist = torch.bmm(qf, r.transpose(1, 2)) + xn + qn
+    size = torch.bmm(qf.abs(), r.abs().transpose(1, 2)) + xn + qn
+    at = dist.view(ncl, -1, cap // gs, gs).argmin(3, keepdim=True)
+    return size.view(ncl, -1, cap // gs, gs).gather(3, at)[..., 0].numpy()
+
+
+def rescore_term_scale(q, w, rows, wblk, gs):
+    """Per score: 2·Σ_d|q_d·x_d| + Σ w·x², in f64 — the size of the terms
+    K7 sums."""
+    qb = torch.as_tensor(bf16_values(q)).double()
+    r = torch.as_tensor(np.asarray(rows, np.float64))
+    blk = r.view(-1, gs, r.shape[1])[torch.as_tensor(wblk).long().clamp_min(0)
+                                     .clamp_max(r.shape[0] // gs - 1)]
+    return (2 * torch.einsum("qd,qmgd->qmg", qb.abs(), blk.abs())
+            + torch.einsum("qmgd,d->qmg", blk * blk,
+                           torch.as_tensor(w).double())).numpy()
+
+
+# (ncl, cap, qcap, d, gs): the 1M bucket shape (scaled down), ragged slot
+# tiles, d = 96 (the K6 case) and 64, groups shorter and longer than the
+# kernel's 64-row tile
+GROUPMIN_SHAPES = [(3, 512, 128, 128, 8), (2, 1536, 112, 128, 8),
+                   (2, 1024, 40, 96, 16), (2, 512, 70, 64, 64),
+                   (1, 2048, 33, 128, 256), (2, 1024, 65, 96, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("shape", GROUPMIN_SHAPES)
+@pytest.mark.parametrize("slots", [False, True])
+def test_groupmin_window_scan_kernel_matches_plain(cuda, dtype, shape, slots):
+    ncl, cap, qcap, d, gs = shape
+    qsl, rows, w = make_groupmin_inputs(ncl, cap, qcap, d, dtype)
+    args = (torch.as_tensor(qsl, device=cuda).to(torch.bfloat16),
+            to_rows(rows, cuda), torch.as_tensor(w, device=cuda), ncl, cap, gs)
+    n_slots = None
+    if slots:  # occupied slots per cluster, one cluster empty
+        n_slots = torch.as_tensor(
+            np.random.default_rng(2).integers(0, qcap + 1, ncl).astype(np.int32),
+            device=cuda)
+        n_slots[0] = 0
+    before = probe_scan.groupmin_window_scan.launches
+    got = probe_scan.groupmin_window_scan(*args, n_slots)
+    torch.cuda.synchronize()
+    assert probe_scan.groupmin_window_scan.launches == before + 1
+    ref = probe_scan.groupmin_window_scan_ref(*args, n_slots)
+    assert got.shape == (ncl, qcap, cap // gs)
+    assert_scores_close(got.cpu(), ref.cpu(),
+                        groupmin_term_scale(qsl, rows, w, ncl, cap, gs))
+
+
+# (nq, m, gs, d, nblk), tests/test_rescore_pallas.py:39-44 and d = 96 (K8)
+RESCORE_SHAPES = [(16, 20, 16, 128, 64), (8, 20, 64, 128, 32),
+                  (5, 6, 8, 128, 16), (32, 4, 256, 96, 8), (7, 9, 8, 96, 30)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("shape", RESCORE_SHAPES)
+def test_gather_rescore_kernel_matches_plain(cuda, dtype, shape):
+    nq, m, gs, d, nblk = shape
+    q, w, rows, wblk = make_rescore_inputs(nq, m, gs, d, nblk, dtype)
+    wblk[0, 0], wblk[-1, -1] = -1, nblk        # out of range: NaN
+    args = (torch.as_tensor(q, device=cuda), torch.as_tensor(w, device=cuda),
+            to_rows(rows, cuda), torch.as_tensor(wblk, device=cuda), gs)
+    before = rescore.gather_rescore.launches
+    got = rescore.gather_rescore(*args)
+    torch.cuda.synchronize()
+    assert rescore.gather_rescore.launches == before + 1
+    ref = rescore.gather_rescore_ref(*args)
+    assert torch.isnan(got[0, 0]).all() and torch.isnan(got[-1, -1]).all()
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    ok = np.ones(wblk.shape, bool)
+    ok[0, 0] = ok[-1, -1] = False
+    assert_scores_close(got[ok], ref[ok],
+                        rescore_term_scale(q, w, rows, wblk, gs)[ok])

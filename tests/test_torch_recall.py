@@ -24,7 +24,8 @@ def test_port_trained_recall_matches_jax(sift_like):
     cfg = vaq_tpu.parse_method_string("VAQ256m32min7max8var1,HEAP")
     jidx = vaq_tpu.VAQIndex(cfg).train(base).encode(base)
     tidx = vaq_tpu_torch.VAQIndex(
-        vaq_tpu_torch.parse_method_string("VAQ256m32min7max8var1,HEAP"))
+        vaq_tpu_torch.parse_method_string("VAQ256m32min7max8var1,HEAP"),
+        device="cpu")
     tidx.train(base).encode(base)
     np.testing.assert_array_equal(tidx.bits, jidx.bits)
     r = {}

@@ -37,7 +37,7 @@ def test_decode_window_scan_plain_matches_jax(geom):
         jnp.asarray(codes.T.copy()), table_j, jnp.asarray(qp),
         block_rows=br, q_tile=8, interpret=True)
     s_t, i_t = scan_codes.decode_window_scan(
-        torch.as_tensor(codes), scan_codes.build_decode_table(cents),
+        torch.as_tensor(codes), scan_codes.build_decode_table(cents, "cpu"),
         torch.as_tensor(qp), br)
     assert s_t.dtype == torch.float32 and i_t.dtype == torch.int32
     assert s_t.shape == (qp.shape[0], codes.shape[0] // br)
@@ -56,7 +56,7 @@ def test_decode_window_scan_ragged_rows_decode_as_code_zero():
         jnp.asarray(padded.T.copy()), table_j, jnp.asarray(qp),
         block_rows=64, q_tile=8, interpret=True)
     s_t, i_t = scan_codes.decode_window_scan(
-        torch.as_tensor(codes), scan_codes.build_decode_table(cents),
+        torch.as_tensor(codes), scan_codes.build_decode_table(cents, "cpu"),
         torch.as_tensor(qp), 64)
     assert s_t.shape == (4, 16)
     assert_windows_match(cents, padded, qp, s_t, i_t, s_j, i_j, 64)
@@ -79,7 +79,7 @@ def test_decode_rescore_plain_matches_jax(geom):
         interpret=True)).reshape(cand.shape)
     got = scan_codes.decode_rescore(
         torch.as_tensor(codes), torch.as_tensor(cand),
-        scan_codes.build_decode_rows(cents), torch.as_tensor(qp)).numpy()
+        scan_codes.build_decode_rows(cents, "cpu"), torch.as_tensor(qp)).numpy()
     assert np.isinf(got[:, -2:]).all()
     np.testing.assert_allclose(got[:, :-2], ref[:, :-2], rtol=1e-5)
 
@@ -94,8 +94,8 @@ def test_decode_scan_topk_matches_jax(geom):
         scan_pallas.build_decode_rows(cents), jnp.asarray(qp), 10,
         block_rows=br, q_tile=8, interpret=True)
     d_t, i_t = scan_codes.decode_scan_topk(
-        torch.as_tensor(codes), scan_codes.build_decode_table(cents),
-        scan_codes.build_decode_rows(cents), torch.as_tensor(qp), 10,
+        torch.as_tensor(codes), scan_codes.build_decode_table(cents, "cpu"),
+        scan_codes.build_decode_rows(cents, "cpu"), torch.as_tensor(qp), 10,
         block_rows=br)
     assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-5)
     # and the true top-1 row wins (test_scan_pallas.py:166)
@@ -110,8 +110,8 @@ def test_decode_scan_topk_fewer_windows_than_k():
     geom = (8, 16, 4, 256, 64)
     cents, codes, qp = make_inputs(geom, seed=5)
     d_t, i_t = scan_codes.decode_scan_topk(
-        torch.as_tensor(codes), scan_codes.build_decode_table(cents),
-        scan_codes.build_decode_rows(cents), torch.as_tensor(qp), 6,
+        torch.as_tensor(codes), scan_codes.build_decode_table(cents, "cpu"),
+        scan_codes.build_decode_rows(cents, "cpu"), torch.as_tensor(qp), 6,
         block_rows=64)
     assert (i_t[:, 4:] == -1).all() and torch.isinf(d_t[:, 4:]).all()
     assert (i_t[:, :4] >= 0).all()
@@ -128,9 +128,9 @@ def test_decode_tables_match_jax():
     u32 = np.asarray(packed).view(np.uint32)[:3]
     pairs = np.stack([u32 & 0xFFFF, u32 >> 16], axis=1).reshape(6, 8)
     want = (pairs.astype(np.uint32) << 16).view(np.float32)
-    table = scan_codes.build_decode_table(cents)
+    table = scan_codes.build_decode_table(cents, "cpu")
     np.testing.assert_array_equal(table.float().numpy(), want)
-    rows = scan_codes.build_decode_rows(cents)
+    rows = scan_codes.build_decode_rows(cents, "cpu")
     np.testing.assert_array_equal(
         rows.numpy(), np.asarray(scan_pallas.build_decode_rows(cents))[:6])
     assert rows[4, 2] == 1e18 and rows[5, 4] == 0.0
@@ -138,8 +138,8 @@ def test_decode_tables_match_jax():
 
 def test_wrappers_check_inputs_and_count_only_launches():
     cents, codes, qp = make_inputs(GEOMETRIES[0])
-    table = scan_codes.build_decode_table(cents)
-    rows = scan_codes.build_decode_rows(cents)
+    table = scan_codes.build_decode_table(cents, "cpu")
+    rows = scan_codes.build_decode_rows(cents, "cpu")
     c, q = torch.as_tensor(codes), torch.as_tensor(qp)
     cand = torch.zeros((4, 3), dtype=torch.int32)
     before = (scan_codes.decode_window_scan.launches,
@@ -186,4 +186,5 @@ def test_library_path_follows_the_sources(monkeypatch, tmp_path):
     (tmp_path / "decode_rescore.cu").write_text("// edited\n")
     assert _build.library_path() != first
     assert {p.name for p in _build.sources()} == {
-        "decode_window_scan.cu", "decode_rescore.cu"}
+        "decode_window_scan.cu", "decode_rescore.cu",
+        "groupmin_window_scan.cu", "gather_rescore.cu"}

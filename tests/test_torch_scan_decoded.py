@@ -141,7 +141,7 @@ def test_compute_groundtruth_matches_jax():
     db = rng.standard_normal((2500, 48)).astype(np.float32)
     q = rng.standard_normal((12, 48)).astype(np.float32)
     gt_j = jdist.compute_groundtruth(q, db, 25)
-    gt_t = distances.compute_groundtruth(q, db, 25)
+    gt_t = distances.compute_groundtruth(q, db, 25, device="cpu")
     assert gt_t.shape == (12, 25) and gt_t.dtype == np.int32
     # random data has no near-ties at this size: labels are identical
     np.testing.assert_array_equal(gt_t, gt_j)
@@ -171,4 +171,53 @@ def test_refine_topk_matches_jax(k):
     d_t, i_t = scan_lut.refine_topk(torch.as_tensor(q),
                                     torch.as_tensor(cands),
                                     torch.as_tensor(labels), k)
+    assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-6)
+
+
+def _jax_decoded8(cent, codes):
+    return jdec.decode_db_int8(jnp.asarray(codes.T), jnp.asarray(cent),
+                               block_rows=256)
+
+
+def test_decode_db_int8_matches_jax():
+    """The int8 tier's rows: JAX's (D, n) int8 matrix transposed to the
+    port's row-major (n, D), identical; scales identical (the same f32
+    quotient); norms of the f32 decode within rtol 1e-6. Padded centroid
+    rows (≥ 1e17) stay out of the scales."""
+    cent, codes, _ = _setup(seed=10)
+    cent[:, -2:] = 1e18
+    codes = np.minimum(codes, cent.shape[1] - 3).astype(np.uint8)
+    d8_j, sc_j, n_j = _jax_decoded8(cent, codes)
+    d8_t, sc_t, n_t = scan_decoded.decode_db_int8(torch.as_tensor(codes),
+                                                  torch.as_tensor(cent))
+    assert d8_t.dtype == torch.int8 and d8_t.shape == (codes.shape[0], 32)
+    np.testing.assert_array_equal(d8_t.numpy(), np.asarray(d8_j).T)
+    np.testing.assert_array_equal(sc_t.numpy(), np.asarray(sc_j))
+    np.testing.assert_array_equal(scan_decoded.int8_dim_scales(cent).numpy(),
+                                  np.asarray(sc_j))
+    np.testing.assert_allclose(n_t.numpy(), np.asarray(n_j), rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed,k,dead", [(0, 10, False), (1, 20, False),
+                                         (2, 5, True), (3, 20, True)])
+def test_decoded8_scan_topk_matches_jax_exact(seed, k, dead, monkeypatch):
+    """Same ids and exact distances as JAX ``decoded8_scan_topk`` with
+    exact=True (its winners rescored from the dequantized int8 rows); with
+    tombstones (+inf norms), which never come back."""
+    cent, codes, q = _setup(seed=seed, n=1500)
+    d8_j, sc_j, n_j = _jax_decoded8(cent, codes)
+    d8_t, sc_t, n_t = scan_decoded.decode_db_int8(torch.as_tensor(codes),
+                                                  torch.as_tensor(cent))
+    gone = np.arange(0, 1500, 7)
+    if dead:
+        n_j = n_j.at[jnp.asarray(gone)].set(jnp.inf)
+        n_t[gone] = torch.inf
+    d_j, i_j = jdec.decoded8_scan_topk(d8_j, sc_j, n_j, d8_j, jnp.asarray(q),
+                                       k, exact=True)
+    monkeypatch.setattr(scan_decoded, "BLOCK_ROWS", 400)
+    d_t, i_t = scan_decoded.decoded8_scan_topk(d8_t, sc_t, n_t,
+                                               torch.as_tensor(q), k)
+    assert d_t.dtype == torch.float32 and i_t.dtype == torch.int32
+    if dead:
+        assert not np.isin(i_t.numpy(), gone).any()
     assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-6)

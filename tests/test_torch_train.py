@@ -46,7 +46,7 @@ def test_train_rotation_matches_jax(m, var):
     which the smallest eigenvalues of a wide spectrum feel in full."""
     x, _ = make_anisotropic_gaussian(4000, 64, 1, seed=0)
     rj = jpca.train_rotation(x, m, var, seed=7)
-    rt = pca.train_rotation(x, m, var, seed=7)
+    rt = pca.train_rotation(x, m, var, seed=7, device="cpu")
     np.testing.assert_allclose(rt.eigvals, rj.eigvals, rtol=1e-5,
                                atol=1e-6 * float(rj.eigvals.max()))
     np.testing.assert_allclose(rt.var_per_subs, rj.var_per_subs, rtol=1e-5,
@@ -87,7 +87,7 @@ def test_bitalloc_from_both_rotations_identical():
     x = _data()
     for m in (8, 16, 32):
         rj = jpca.train_rotation(x, m)
-        rt = pca.train_rotation(x, m)
+        rt = pca.train_rotation(x, m, device="cpu")
         np.testing.assert_array_equal(
             bitalloc.allocate_bits(rt.var_per_subs, 4 * m, 1, 8),
             jbitalloc.allocate_bits(rj.var_per_subs, 4 * m, 1, 8))
@@ -153,7 +153,7 @@ def test_encode_matches_jax_given_its_rotation_and_codebooks(sift_like):
     base, _, _ = sift_like
     cfg = vaq_tpu.parse_method_string("VAQ128m16min6max8var1,HEAP")
     jidx = vaq_tpu.VAQIndex(cfg).train(base[:2000]).encode(base)
-    tidx = index_from_numpy(*jax_state(jidx))
+    tidx = index_from_numpy(*jax_state(jidx), "cpu")
     tidx.encode(base)
     assert tidx.codes.dtype == torch.uint8
     same = (tidx.codes_rowmajor() == jidx.codes_rowmajor())
@@ -171,13 +171,14 @@ def test_ragged_configs_match_jax(method):
     base, queries = make_anisotropic_gaussian(3000, 60, 6, seed=2)
     jidx = vaq_tpu.VAQIndex(vaq_tpu.parse_method_string(method))
     jidx.train(base).encode(base)
-    tidx = index_from_numpy(*jax_state(jidx))
+    tidx = index_from_numpy(*jax_state(jidx), "cpu")
     assert (jidx.bits < jidx.config.max_bits).any()
     for backend in ("decoded", "codes"):
         d_j, i_j = jidx.search(queries, 2, backend=backend)
         d_t, i_t = tidx.search(queries, 2, backend=backend)
         assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-5)
-    own = vaq_tpu_torch.VAQIndex(vaq_tpu_torch.parse_method_string(method))
+    own = vaq_tpu_torch.VAQIndex(vaq_tpu_torch.parse_method_string(method),
+                                device="cpu")
     own.build(base)
     assert own.eigvecs.shape == (64, 64) and own.orig_dim == 60
     assert own.highest_subs == jidx.highest_subs

@@ -53,7 +53,7 @@ def pair():
     base, queries, _ = make_sift_like(n=8000, n_queries=8, d=64, seed=3)
     jidx = vaq_tpu.VAQIndex(vaq_tpu.parse_method_string(METHOD))
     jidx.train(base).encode(base)
-    return base, queries, jidx, index_from_numpy(*jax_state(jidx))
+    return base, queries, jidx, index_from_numpy(*jax_state(jidx), "cpu")
 
 
 def test_convert_holds_the_state(pair):
@@ -124,7 +124,8 @@ def test_refine_matches_jax(pair):
 def test_npz_from_jax_to_port(pair, tmp_path):
     _, queries, jidx, tidx = pair
     jidx.save(str(tmp_path / "jax.npz"))
-    loaded = vaq_tpu_torch.VAQIndex.load(str(tmp_path / "jax.npz"))
+    loaded = vaq_tpu_torch.VAQIndex.load(str(tmp_path / "jax.npz"),
+                                          device="cpu")
     np.testing.assert_array_equal(loaded.codes_rowmajor(),
                                   tidx.codes_rowmajor())
     np.testing.assert_array_equal(loaded.eigvecs, tidx.eigvecs)
@@ -145,16 +146,17 @@ def test_npz_from_port_to_jax(pair, tmp_path):
     d_t, i_t = tidx.search(queries, 5, backend="decoded")
     assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-5)
     # and the port reads its own file back to the same state
-    again = vaq_tpu_torch.VAQIndex.load(str(tmp_path / "port.npz"))
+    again = vaq_tpu_torch.VAQIndex.load(str(tmp_path / "port.npz"),
+                                        device="cpu")
     for a, b in zip(again.state()[0].values(), tidx.state()[0].values()):
         np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("backend,k", [("decoded", 5), ("codes", 5),
-                                       ("codes", 2)])
+                                       ("codes", 2), ("decoded8", 5)])
 def test_tombstones_match_jax(pair, tmp_path, backend, k):
-    """Deleted rows never return: +inf norms on the decoded tier, over-fetch
-    plus an on-device filter on the codes tier, as in JAX."""
+    """Deleted rows never return: +inf norms on the decoded and int8 tiers,
+    over-fetch plus an on-device filter on the codes tier, as in JAX."""
     _, queries, jidx, _ = pair
     jidx.save(str(tmp_path / "x.npz"))
     jdel = vaq_tpu.VAQIndex.load(str(tmp_path / "x.npz"))
@@ -166,7 +168,7 @@ def test_tombstones_match_jax(pair, tmp_path, backend, k):
     # k + #deleted instead and here falls back to the decoded tier
     d_j, i_j = jdel.search_device(jnp.asarray(queries), k, backend=backend,
                                   exact=True)
-    tdel = index_from_numpy(*jax_state(jdel))
+    tdel = index_from_numpy(*jax_state(jdel), "cpu")
     d_t, i_t = tdel.search(queries, k, backend=backend)
     assert not np.isin(i_t, dead).any()
     assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-5)
@@ -185,7 +187,7 @@ def test_metrics_match_jax():
 
 def test_unported_backends_and_bad_inputs_raise(pair):
     _, queries, _, tidx = pair
-    for backend in ("decoded8", "ivf", "lut", "fast4", "lut_gather"):
+    for backend in ("lut", "fast4", "lut_gather"):
         with pytest.raises(ConfigError, match="ROADMAP slice"):
             tidx.search(queries, 5, backend=backend)
         with pytest.raises(ConfigError, match="ROADMAP slice"):
@@ -196,7 +198,7 @@ def test_unported_backends_and_bad_inputs_raise(pair):
         tidx.search(queries[:, :10], 5)
     with pytest.raises(ShapeError):
         tidx.search(queries[0], 5)
-    fresh = vaq_tpu_torch.VAQIndex(tidx.config)
+    fresh = vaq_tpu_torch.VAQIndex(tidx.config, device="cpu")
     with pytest.raises(NotReadyError):
         fresh.search(queries, 5)
     with pytest.raises(NotReadyError):
@@ -213,11 +215,12 @@ def test_unported_fast_search_and_wide_training_raise(pair, tmp_path):
     m = jidx.highest_subs
     arrays["lut_offsets"] = np.linspace(0, 1, m, dtype=np.float32)
     arrays["lut_scales"] = np.full(m, 3.0, np.float32)
-    fast = index_from_numpy(arrays, meta)
+    fast = index_from_numpy(arrays, meta, "cpu")
     with pytest.raises(ConfigError, match="FAST"):
         fast.search(queries, 5)
     fast.save(str(tmp_path / "fast.npz"))
-    back = vaq_tpu_torch.VAQIndex.load(str(tmp_path / "fast.npz"))
+    back = vaq_tpu_torch.VAQIndex.load(str(tmp_path / "fast.npz"),
+                                       device="cpu")
     np.testing.assert_array_equal(back.lut_offsets, arrays["lut_offsets"])
     np.testing.assert_array_equal(back.lut_scales, arrays["lut_scales"])
     wide = vaq_tpu_torch.VAQConfig(bit_budget=38, subspace_num=4,
@@ -225,7 +228,7 @@ def test_unported_fast_search_and_wide_training_raise(pair, tmp_path):
                                    hierarchical_kmeans=True)
     x = np.random.default_rng(0).standard_normal((300, 8)).astype(np.float32)
     with pytest.raises(ConfigError, match="hierarchical"):
-        vaq_tpu_torch.VAQIndex(wide).train(x)
+        vaq_tpu_torch.VAQIndex(wide, device="cpu").train(x)
 
 
 def test_codes_tier_refuses_wide_codes(pair):
@@ -235,7 +238,7 @@ def test_codes_tier_refuses_wide_codes(pair):
     arrays, meta = jax_state(jidx)
     arrays["bits"] = arrays["bits"].copy()
     arrays["bits"][0] = 9
-    wide = index_from_numpy(arrays, meta)
+    wide = index_from_numpy(arrays, meta, "cpu")
     assert wide.codes.dtype == torch.int32
     with pytest.raises(ConfigError, match="<= 8-bit"):
         wide.search(queries, 5, backend="codes")
@@ -248,7 +251,20 @@ def test_codes_block_rows_matches_jax(n, k):
     """The window size decides which candidates survive: it stays the JAX
     rule (vaq.py:506-528)."""
     j = vaq_tpu.VAQIndex(vaq_tpu.parse_method_string(METHOD))
-    t = vaq_tpu_torch.VAQIndex(vaq_tpu_torch.parse_method_string(METHOD))
+    t = vaq_tpu_torch.VAQIndex(vaq_tpu_torch.parse_method_string(METHOD),
+                              device="cpu")
     for idx in (j, t):
         idx.n_rows, idx.highest_subs, idx.subs_len = n, 32, 4
     assert t._codes_block_rows(k) == j._codes_block_rows(k)
+
+
+@pytest.mark.parametrize("k", [5, 40])
+def test_decoded8_tier_matches_jax(pair, k):
+    """The int8 tier through the index: JAX's search_device with
+    exact=True, on the converted state."""
+    _, queries, jidx, tidx = pair
+    d_j, i_j = jidx.search_device(jnp.asarray(queries), k, backend="decoded8",
+                                  exact=True)
+    d_t, i_t = tidx.search(queries, k, backend="decoded8", query_batch=5)
+    assert tidx.decoded8.dtype == torch.int8
+    assert_topk_match(d_t, i_t, np.asarray(d_j), np.asarray(i_j), rtol=1e-6)

@@ -6,10 +6,13 @@ each counterpart is easy to find; ``vaq_tpu`` stays the reference the port is
 tested against. This package imports ``torch`` and never ``jax`` or
 ``vaq_tpu``.
 
-The slice ported so far is the main path: ``VAQIndex.train`` (PCA, bit
-allocation, batched k-means), ``encode``, ``search`` on the decoded bf16 tier
-and on the codes-resident tier (two hand-written CUDA kernels,
-``ops/scan_codes.py``), and ``refine``.
+Ported so far: ``VAQIndex.train`` (PCA, bit allocation, batched k-means),
+``encode``, ``search`` on the decoded bf16 tier, the int8 tier
+(``"decoded8"``), the codes-resident tier (CUDA kernels K1/K2,
+``ops/scan_codes.py``) and the TI/IVF cluster probe (``attach_ivf``, then
+``backend="ivf"``; CUDA kernels K5/K7, ``ops/probe_scan.py`` and
+``ops/rescore.py``), and ``refine``. Entry points run on ``"cuda"`` unless
+given ``device="cpu"``; without a card they raise ``DeviceError``.
 """
 
 import torch as _torch
@@ -27,8 +30,10 @@ _torch.set_float32_matmul_precision("highest")
 
 from vaq_tpu_torch.config import (SearchMethod, VAQConfig,  # noqa: E402
                                   parse_method_string)
-from vaq_tpu_torch.errors import (ConfigError, FormatError,  # noqa: E402
-                                  NotReadyError, ShapeError, VAQError)
+from vaq_tpu_torch.errors import (ConfigError, DeviceError,  # noqa: E402
+                                  FormatError, NotReadyError, ShapeError,
+                                  VAQError)
+from vaq_tpu_torch.ivf import attach_ivf  # noqa: E402
 from vaq_tpu_torch.vaq import VAQIndex  # noqa: E402
 
 __version__ = "0.1.0"
@@ -38,8 +43,10 @@ __all__ = [
     "VAQConfig",
     "parse_method_string",
     "VAQIndex",
+    "attach_ivf",
     "VAQError",
     "ConfigError",
+    "DeviceError",
     "NotReadyError",
     "ShapeError",
     "FormatError",

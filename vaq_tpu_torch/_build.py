@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads. The library lands in
 ``build/vaq_tpu_torch/`` beside the package, named by a hash of the sources
 and flags, so an edit to a source builds a new one at its first use and an
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vaq_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types (pointers and the stream as
@@ -36,6 +37,11 @@ _SIGNATURES = {
                                _P, _P),
     # codes, n_rows, m, cand, nq, kk, rows, qp, d, out, stream
     "vaq_decode_rescore": (_P, _L, _I, _P, _I, _I, _P, _P, _I, _P, _P),
+    # qsl, rows, rows_int8, w, n_slots, ncl, cap, qcap, d, gs, out, stream
+    "vaq_groupmin_window_scan": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+                                 _P),
+    # q, w, rows, rows_int8, n_blk, wblk, nq, m, gs, d, out, stream
+    "vaq_gather_rescore": (_P, _P, _P, _I, _L, _P, _I, _I, _I, _I, _P, _P),
 }
 
 
@@ -70,22 +76,42 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the library unless this exact one exists; returns its path.
-    The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside it as ``.log``."""
+    Each source compiles in its own ``nvcc`` process, all at once; the
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills) is
+    kept beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", str(o)]
+            for p, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *(str(o) for o in objs)]
+    failed = [(c, log) for c, p, log in zip(cmds, procs, logs)
+              if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              check=False)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = [(link, proc.stdout + proc.stderr)]
+    out.with_suffix(".log").write_text("".join(
+        " ".join(c) + "\n" + log for c, log in zip(cmds + [link], logs)))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc exited {proc.returncode}:\n{proc.stderr[-6000:]}")
+        raise KernelBuildError("\n".join(
+            f"{' '.join(c)}\n{log[-6000:]}" for c, log in failed))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 

@@ -13,6 +13,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from vaq_tpu_torch.device import DEFAULT, resolve
 from vaq_tpu_torch.ops.distances import compute_groundtruth
 
 
@@ -49,9 +50,11 @@ def make_anisotropic_gaussian(
 
 
 def make_sift_like(n: int = 10000, n_queries: int = 100, d: int = 128,
-                   seed: int = 42, device: torch.device | str = "cpu",
+                   seed: int = 42, device: torch.device | str = DEFAULT,
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(base, queries, groundtruth@100) — the siftsmall-shaped fixture."""
+    """(base, queries, groundtruth@100) — the siftsmall-shaped fixture; the
+    groundtruth is computed on ``device``."""
+    dev = resolve(device)
     base, queries = make_anisotropic_gaussian(n, d, n_queries, seed)
-    gt = compute_groundtruth(queries, base, k=100, device=device)
+    gt = compute_groundtruth(queries, base, k=100, device=dev)
     return base, queries, gt

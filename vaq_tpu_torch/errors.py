@@ -1,7 +1,8 @@
 """Library error hierarchy.
 
-Copied verbatim from ``vaq_tpu/errors.py``: importing it from there would
-run ``vaq_tpu/__init__.py``, which imports jax, and this package never does.
+Copied from ``vaq_tpu/errors.py`` (importing it from there would run
+``vaq_tpu/__init__.py``, which imports jax, and this package never does),
+plus ``DeviceError``, which only the port raises.
 
 The reference engine fails with bare ``assert(false)`` / ``exit(1)``
 (e.g. VAQ.cpp's method-parse dead ends, IO.hpp's format checks); a library
@@ -40,3 +41,9 @@ class ShapeError(VAQError):
 
 class FormatError(VAQError):
     """On-disk dataset or artifact failed to parse."""
+
+
+class DeviceError(VAQError):
+    """The requested torch device is not available (the port's entry points
+    run on ``cuda`` unless the caller asks for ``cpu``, and never fall back
+    to the CPU on their own)."""

@@ -50,6 +50,12 @@ def _assign_many(xs: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     ], dim=1)
 
 
+def assign_clusters(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """(n, d) × (k, d) → (n,) int64 nearest-centroid ids, in row blocks
+    (``vaq_tpu/kmeans.py:40``); argmin ties go to the lower centroid."""
+    return _assign_many(x[None], centroids[None])[0]
+
+
 def _lloyd_step_many(xs: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     g, n, d = xs.shape
     k = c.shape[1]
@@ -112,4 +118,4 @@ def fit(x: torch.Tensor, k: int, iters: int = 25, seed: int = 13517106
     idx = torch.as_tensor(_init_indices(rng, x.shape[0], k),
                           dtype=torch.int64, device=x.device)
     centroids = lloyd(x, x[idx], iters)
-    return centroids, _assign_many(x[None], centroids[None])[0]
+    return centroids, assign_clusters(x, centroids)

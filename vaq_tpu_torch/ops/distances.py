@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from vaq_tpu_torch.device import DEFAULT, resolve
+
 # Database rows per block of exact_search (a block of 1000 queries' f32
 # distances is 512 MB).
 BLOCK_ROWS = 131072
@@ -64,9 +66,11 @@ def exact_search(queries: torch.Tensor, db: torch.Tensor, k: int
 
 
 def compute_groundtruth(queries, db, k: int,
-                        device: torch.device | str = "cpu") -> np.ndarray:
-    """Brute-force groundtruth labels (host arrays in, host labels out)."""
-    q = torch.as_tensor(np.asarray(queries, np.float32), device=device)
-    x = torch.as_tensor(np.asarray(db, np.float32), device=device)
+                        device: torch.device | str = DEFAULT) -> np.ndarray:
+    """Brute-force groundtruth labels (host arrays in, host labels out),
+    computed on ``device``."""
+    dev = resolve(device)
+    q = torch.as_tensor(np.asarray(queries, np.float32), device=dev)
+    x = torch.as_tensor(np.asarray(db, np.float32), device=dev)
     _, labels = exact_search(q, x, k)
     return labels.cpu().numpy()

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from vaq_tpu_torch import _build
+from vaq_tpu_torch.device import DEFAULT, resolve
 
 _INT32_MAX = 2**31 - 1
 # Rows per chunk of the plain K1 version (bounds its (nq, rows) f32 scores).
@@ -48,17 +49,18 @@ def _centroid_rows(centroids) -> torch.Tensor:
     return cents.permute(1, 0, 2).reshape(c, m * l).contiguous()
 
 
-def build_decode_table(centroids, device: torch.device | str = "cpu"
+def build_decode_table(centroids, device: torch.device | str = DEFAULT
                        ) -> torch.Tensor:
-    """(C, M·L) bf16 decode table for K1: the centroid rows rounded to bf16
-    (round-to-nearest-even, as the JAX table's ml_dtypes cast)."""
-    return _centroid_rows(centroids).to(torch.bfloat16).to(device)
+    """(C, M·L) bf16 decode table for K1 on ``device``: the centroid rows
+    rounded to bf16 (round-to-nearest-even, as the JAX table's ml_dtypes
+    cast)."""
+    return _centroid_rows(centroids).to(torch.bfloat16).to(resolve(device))
 
 
-def build_decode_rows(centroids, device: torch.device | str = "cpu"
+def build_decode_rows(centroids, device: torch.device | str = DEFAULT
                       ) -> torch.Tensor:
-    """(C, M·L) f32 decode rows for K2."""
-    return _centroid_rows(centroids).to(device)
+    """(C, M·L) f32 decode rows for K2 on ``device``."""
+    return _centroid_rows(centroids).to(resolve(device))
 
 
 def _idx_bits(block_rows: int) -> int:

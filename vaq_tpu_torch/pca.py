@@ -22,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from vaq_tpu_torch.device import DEFAULT, resolve
 from vaq_tpu_torch.rng import DEFAULT_SEED, sample_rows
 
 COV_BLOCK_ROWS = 256 * 1024      # VAQ.cpp:16
@@ -54,9 +55,11 @@ def train_rotation(
     subspace_num: int,
     percent_var_explained: float = 1.0,
     seed: int = DEFAULT_SEED,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT,
 ) -> RotationResult:
-    """Compute the (sorted, variance-balanced) PCA rotation and truncation."""
+    """Compute the (sorted, variance-balanced) PCA rotation and truncation;
+    XᵀX is accumulated on ``device``."""
+    dev = resolve(device)
     x = np.asarray(x, dtype=np.float32)
     d = x.shape[1]
     subs_len = (d + subspace_num - 1) // subspace_num  # ceil, VAQ.cpp:104-107
@@ -67,7 +70,7 @@ def train_rotation(
         )
 
     sample = sample_rows(x, COV_SAMPLE_PER_DIM * d, seed)
-    cov = uncentered_cov(torch.as_tensor(sample, device=device)).cpu().numpy()
+    cov = uncentered_cov(torch.as_tensor(sample, device=dev)).cpu().numpy()
 
     # Symmetric eigendecomposition; eigh returns ascending order.
     evals, evecs = np.linalg.eigh(cov.astype(np.float64))

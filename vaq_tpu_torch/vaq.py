@@ -12,10 +12,15 @@ Stage mapping (reference file:line → JAX counterpart):
   search   VAQ::search  VAQ.cpp:776-847  vaq.py:419-489, 587-819
   refine   VAQ::refine  VAQ.cpp:849-876  vaq.py:1063-1075
 
-``search`` serves two tiers: ``"decoded"`` (bf16 decoded rows, a plain GEMM;
-what ``"auto"`` picks) and ``"codes"`` (only the u8 codes resident, searched
-by the hand-written CUDA kernels of ``ops/scan_codes.py``). The other JAX
-backends come with later port slices and raise ``ConfigError`` until then.
+``search`` serves four backends: ``"decoded"`` (bf16 decoded rows, a plain
+GEMM; what ``"auto"`` picks without TI), ``"decoded8"`` (the int8 tier, one
+scale per dimension), ``"codes"`` (only the u8 codes resident, searched by
+the hand-written CUDA kernels K1/K2 of ``ops/scan_codes.py``) and ``"ivf"``
+(the TI/IVF cluster probe of ``ivf.py``, kernels K5/K7, once ``attach_ivf``
+has built its buckets; ``"auto"`` takes it when the config has TI). The
+FAST/LUT backends come with a later port slice and raise ``ConfigError``
+until then. The index runs on ``device``, ``"cuda"`` unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from vaq_tpu_torch import bitalloc, io, kmeans, pca
 from vaq_tpu_torch.config import SearchMethod, VAQConfig
+from vaq_tpu_torch.device import DEFAULT, resolve
 from vaq_tpu_torch.errors import ConfigError, NotReadyError, ShapeError
 from vaq_tpu_torch.ops import scan_codes, scan_decoded, scan_lut
 
@@ -38,8 +44,6 @@ PAD_SENTINEL = 1e18
 
 # JAX backends that later port slices bring (ROADMAP.md, queue 1).
 _LATER_BACKENDS = {
-    "decoded8": "the int8 tier (ROADMAP slice 2)",
-    "ivf": "the TI/IVF cluster probe (ROADMAP slice 2)",
     "lut": "the FAST/LUT family (ROADMAP slice 3)",
     "fast4": "the FAST/LUT family (ROADMAP slice 3)",
     "lut_gather": "the FAST/LUT family (ROADMAP slice 3)",
@@ -89,8 +93,7 @@ class VAQIndex:
     """A trained (or in-training) VAQ index on one torch device."""
 
     config: VAQConfig
-    device: torch.device = dataclasses.field(
-        default_factory=lambda: torch.device("cpu"))
+    device: torch.device | str = DEFAULT
 
     # Rotation / truncation state (train).
     eigvecs: Optional[np.ndarray] = None        # (d, d) f32
@@ -114,6 +117,14 @@ class VAQIndex:
     decoded: Optional[torch.Tensor] = None      # (n, M'·L) bf16
     decoded_norms: Optional[torch.Tensor] = None  # (n,) f32
 
+    # int8 tier (per-dim scales, exact f32 norms), rebuilt lazily.
+    decoded8: Optional[torch.Tensor] = None        # (n, M'·L) int8
+    decoded8_scales: Optional[torch.Tensor] = None  # (M'·L,) f32
+    decoded8_norms: Optional[torch.Tensor] = None   # (n,) f32
+
+    # Cluster-probe (TI) state, set by ivf.attach_ivf.
+    ivf: Optional[object] = None
+
     # LUT u8 quantization: no ported path reads it yet; kept so that an index
     # saved by the JAX package survives a load/save round trip intact.
     lut_offsets: Optional[np.ndarray] = None
@@ -129,7 +140,7 @@ class VAQIndex:
     _dec_rows: Optional[torch.Tensor] = None
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = resolve(self.device)
 
     # ------------------------------------------------------------------
     # Derived properties
@@ -275,6 +286,8 @@ class VAQIndex:
         self.n_rows = n
         self.decoded = None
         self.decoded_norms = None
+        self.decoded8 = self.decoded8_scales = self.decoded8_norms = None
+        self.ivf = None
         return self
 
     def codes_rowmajor(self) -> np.ndarray:
@@ -314,6 +327,16 @@ class VAQIndex:
                                             device=self.device))
             self.decoded = dec
             self.decoded_norms = self._tombstone_norms(norms)
+
+    def _ensure_decoded8(self) -> None:
+        """Materialize the int8 database for the decoded8 tier."""
+        if self.decoded8 is None:
+            d8, scales, norms = scan_decoded.decode_db_int8(
+                self.codes, torch.as_tensor(self.centroids,
+                                            device=self.device))
+            self.decoded8 = d8
+            self.decoded8_scales = scales
+            self.decoded8_norms = self._tombstone_norms(norms)
 
     def _require_codes_bits(self) -> None:
         """The codes tier reads u8 codes, so it serves only ≤ 8-bit
@@ -362,8 +385,8 @@ class VAQIndex:
         """One query batch on the device; results stay there.
 
         queries_dev (nq, padded d) f32 on the index's device. ``backend``:
-        "decoded" or "codes". Returns (sq_dists (nq, k) f32 ascending,
-        labels (nq, k) int32)."""
+        "decoded", "decoded8" or "codes". Returns (sq_dists (nq, k) f32
+        ascending, labels (nq, k) int32)."""
         if backend == "codes":
             self._require_codes_bits()
             br = self._codes_block_rows(k)
@@ -388,7 +411,12 @@ class VAQIndex:
                 top, pos = torch.topk(d, k, dim=1, largest=False, sorted=True)
                 i = torch.gather(i, 1, pos)
                 return top, torch.where(torch.isfinite(top), i, -1)
-        _check_backend(backend, ("decoded",))
+        _check_backend(backend, ("decoded", "decoded8"))
+        if backend == "decoded8":
+            self._ensure_decoded8()
+            return scan_decoded.decoded8_scan_topk(
+                self.decoded8, self.decoded8_scales, self.decoded8_norms,
+                pca.project(queries_dev, self._eigvecs_device()), k)
         self._ensure_decoded()
         return scan_decoded.decoded_search_e2e(
             queries_dev, self._eigvecs_device(), self.decoded,
@@ -399,16 +427,24 @@ class VAQIndex:
         """ADC top-k search for a query batch; host arrays in and out.
 
         Returns (sq_dists (nq, k) f32, labels (nq, k) int32), ascending.
-        backend: "decoded" (bf16 reconstruction GEMM), "codes" (only the u8
-        codes resident, searched by the CUDA kernels K1/K2) or "auto", which
-        picks "decoded" as the JAX version does for non-FAST configs.
+        backend: "decoded" (bf16 reconstruction GEMM), "decoded8" (the int8
+        tier), "codes" (only the u8 codes resident, searched by the CUDA
+        kernels K1/K2), "ivf" (the cluster probe, kernels K5/K7; needs
+        ``attach_ivf`` first) or "auto", which takes the probe when the
+        config has TI and the probe state exists, else "decoded", as the JAX
+        version does for non-FAST configs (vaq.py:629-690). Tombstones
+        present when the buckets were built never come back from the probe.
         """
         cfg = self.config
         if self.eigvecs is None:
             raise NotReadyError("search() requires train() first")
         if self.codes is None:
             raise NotReadyError("search() requires encode() first")
-        _check_backend(backend, ("auto", "decoded", "codes"))
+        _check_backend(backend, ("auto", "decoded", "decoded8", "codes",
+                                 "ivf"))
+        if backend == "ivf" and self.ivf is None:
+            raise NotReadyError(
+                "backend='ivf' requires ivf.attach_ivf(index) first")
         queries = np.asarray(queries, dtype=np.float32)
         if queries.ndim != 2:
             raise ShapeError(f"queries must be (nq, d), got {queries.shape}")
@@ -418,6 +454,9 @@ class VAQIndex:
                 f"query dim {queries.shape[1]} does not match index dim "
                 f"{self.orig_dim}")
         queries = io.pad_dims(queries, cfg.subspace_num)
+        if backend == "auto" and self.ivf is not None and \
+                cfg.methods & SearchMethod.TI:
+            backend = "ivf"
         if backend == "auto":
             fast = cfg.methods & (SearchMethod.FAST | SearchMethod.FAST2
                                   | SearchMethod.FAST3)
@@ -432,7 +471,11 @@ class VAQIndex:
         for start in range(0, nq, query_batch):
             qb = torch.as_tensor(queries[start:start + query_batch],
                                  device=self.device)
-            d, i = self.search_device(qb, k, backend=backend)
+            if backend == "ivf":
+                d, i = self.ivf.search(
+                    self, pca.project(qb, self._eigvecs_device()), k)
+            else:
+                d, i = self.search_device(qb, k, backend=backend)
             all_d[start:start + qb.shape[0]] = d.cpu().numpy()
             all_i[start:start + qb.shape[0]] = i.cpu().numpy()
         return all_d, all_i
@@ -501,7 +544,7 @@ class VAQIndex:
         io.save_index_npz(path, *self.state())
 
     @classmethod
-    def load(cls, path: str, device: torch.device | str = "cpu"
+    def load(cls, path: str, device: torch.device | str = DEFAULT
              ) -> "VAQIndex":
         """Load an index saved by either package onto ``device``."""
         from vaq_tpu_torch.convert import index_from_numpy
