@@ -5,8 +5,8 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``, one
-``nvcc`` per source, all at once) and runs six phases, printing progress as
-it goes:
+``nvcc`` per source, all at once) and runs seven phases, printing progress
+as it goes:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc
    versions;
@@ -20,7 +20,11 @@ it goes:
    probe buckets (1000 clusters of 1536 rows, 112 query slots, gs = 8) with
    int8 rows, at d = 96 (the shape of JAX's transposed K6) and with bf16
    rows; K7 at 512 queries × 200 windows of 8 rows, int8 and bf16, d = 128
-   and 96 (K8);
+   and 96 (K8); K3 (f32 LUT) and K4 (s8 LUT), keys bit-equal to the plain
+   version's, at the FAST path's shape (M = 64, C = 16, 1M rows padded to
+   1,001,472, 512 queries, 256-row windows) and at M = 32, C = 256, 262,144
+   rows, 128 queries, 512-row windows, beside a tensor-core product of the
+   codes' one-hot by the LUT (bf16 ``matmul`` / ``_int_mm``);
 4. the codes path at SIFT1M shape, 1M × 128-d,
    ``VAQ256m32min7max8var1,HEAP`` on seeded synthetic data: train, encode,
    search on the decoded and on the codes tier (k = 100), then search 200
@@ -34,10 +38,18 @@ it goes:
    split of one visit-0.1 batch by stage, and K5/K7's counters zeroed just
    before and read just after; at visit 1.0 the probe must reach the
    decoded tier's recall within 0.03;
-6. one index state searched on the card and through the port's CPU plain
-   versions at n = 20k (the decoded and codes tiers, refine, and an IVF
-   state built on the card and copied to the CPU, at d = 128 and d = 96);
-   the answers must agree.
+6. the FAST/LUT path on the same data, ``VAQ256m64min1max4var1,FAST``
+   (``bench.py:603``'s FAST config at d = 128): train, encode,
+   ``search(backend="fast4")`` (K3), ``learn_quantization``, the same search
+   again (K4), ``"lut_gather"``, ``"auto"`` (which the route sends to the
+   codes tier: K1 must launch, K3/K4 must not), and a fast4 search of 200
+   refined to 100; K3's and K4's counters are zeroed before their steps and
+   must have moved after them;
+7. one index state searched on the card and through the port's CPU plain
+   versions at n = 20k (the decoded and codes tiers, refine, an IVF state
+   built on the card and copied to the CPU at d = 128 and d = 96, and a FAST
+   state through fast4 with and without its LUT quantizers and through
+   ``"lut_gather"``); the answers must agree.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are a JSON object of per-kernel numbers and the card's
@@ -73,9 +85,13 @@ DEVICE = "cuda"
 KC_NCL, KC_CAP, KC_QCAP, KC_GS, KC_WIN = 1000, 1536, 112, 8, 200
 TI_CLUSTERS, TI_SEGMENTS = 1000, 16       # bench.py:642-643
 VISITS = (0.25, 0.10, 0.05, 1.0)          # Fig. 11 (ExperimentsParameters.txt:114-124), then all
+# K3/K4 at the FAST path's shape (M = 64, C = 16, 256-row windows, 512
+# queries; n pads to 1,001,472 rows) and at one C = 256 shape.
+KF_SHAPES = ((1_000_000, 64, 16, 512, 256), (262_144, 32, 256, 128, 512))
+FAST_METHOD = "VAQ256m64min1max4var1,FAST"   # bench.py:603's FAST config at d = 128
 # Published H100 SXM peaks (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -280,6 +296,58 @@ def _check_rescore(gen, d: int, dtype: str) -> dict:
                   err, ms, plain, bound, None)
 
 
+def _check_fast4(rng, shape, int8: bool) -> dict:
+    """K3 (f32 LUT) or K4 (s8 LUT) against its plain version: keys equal
+    bit for bit. The library yardstick multiplies a one-hot of the codes
+    (built outside the timing) by the LUT on the tensor cores: bf16
+    ``matmul`` for K3, ``_int_mm`` for K4. The bound counts that one-hot
+    form, the fastest known (2·nq·n·M·C operations), against the bytes of
+    codes, LUT and keys."""
+    from vaq_tpu_torch.ops import scan_codes
+    dev = torch.device(DEVICE)
+    n, m, c, nq, br = shape
+    n_pad = n + (-n) % (scan_codes.W_PER_CELL * br)
+    n_win = n_pad // br
+    codes = torch.as_tensor(rng.integers(0, c, (n, m), dtype=np.uint8), device=dev)
+    if int8:
+        luts = torch.as_tensor(rng.integers(-128, 128, (nq, m, c), dtype=np.int8),
+                               device=dev)
+    else:
+        luts = torch.as_tensor((rng.random((nq, m, c)) * 4.0).astype(np.float32),
+                               device=dev)
+    s_k, i_k = scan_codes.fast4_window_scan(codes, luts, br, n_win)
+    s_r, i_r = scan_codes.fast4_window_scan_ref(codes, luts, br, n_win)
+    torch.cuda.synchronize()
+    name = "K4" if int8 else "K3"
+    assert s_k.shape == (nq, n_win), (name, s_k.shape)
+    assert torch.equal(s_k, s_r) and torch.equal(i_k, i_r), \
+        f"{name} keys differ from the plain version at {shape}"
+    ms = _time_ms(lambda: scan_codes.fast4_window_scan(codes, luts, br, n_win), 10)
+    plain = _time_ms(lambda: scan_codes.fast4_window_scan_ref(codes, luts, br, n_win), 3)
+    # the one-hot of the codes, (n_pad, M·C), padded rows all zero
+    hot = torch.zeros((n_pad, m * c), dtype=torch.int8 if int8 else torch.bfloat16,
+                      device=dev)
+    hot[:n].scatter_(1, codes.long() + torch.arange(m, device=dev) * c, 1)
+    lut_t = luts.reshape(nq, m * c).T      # (M·C, nq), column-major
+    if int8:
+        library = _time_ms(lambda: torch._int_mm(hot, lut_t), 10)
+    else:
+        lut_bf = lut_t.to(torch.bfloat16).contiguous()
+        library = _time_ms(lambda: torch.matmul(hot, lut_bf), 10)
+    del hot
+    nbytes = n_pad * m + luts.numel() * luts.element_size() + nq * n_win * 4
+    bound = _bound(nbytes, 2.0 * nq * n_pad * m * c, "int8" if int8 else "bf16")
+    log(f"[kernels] {name} fast4_window_scan n={n} M={m} C={c} nq={nq} br={br}: "
+        f"keys equal, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"{'_int_mm' if int8 else 'bf16 matmul'} of the one-hot {library:.3f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]})")
+    return _entry("fast4_window_scan" + ("_int8" if int8 else "")
+                  + ("" if c == 16 else f"_c{c}"),
+                  "vaq_tpu_torch/csrc/fast4_window_scan.cu",
+                  "vaq_tpu/ops/scan_pallas.py:" + ("155" if int8 else "123"),
+                  0.0, ms, plain, bound, library)
+
+
 def phase_kernels() -> list[dict]:
     """Every kernel against its plain version on the card."""
     from vaq_tpu_torch.ops import scan_codes
@@ -370,11 +438,15 @@ def phase_kernels() -> list[dict]:
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
         kernels.append(_check_rescore(gen, d_k, dtype))
         torch.cuda.empty_cache()
+    for shape in KF_SHAPES:
+        for int8 in (False, True):
+            kernels.append(_check_fast4(rng, shape, int8))
+            torch.cuda.empty_cache()
     return kernels
 
 
-def _step(name: str, fn, nq: int | None = None):
-    """Run one main-path step; log its time, QPS and peak device memory."""
+def _step(name: str, fn, nq: int | None = None, tag: str = "main"):
+    """Run one path step; log its time, QPS and peak device memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -383,7 +455,7 @@ def _step(name: str, fn, nq: int | None = None):
     dt = time.perf_counter() - t0
     mem = torch.cuda.max_memory_allocated() / 2**20
     qps = f", {nq / dt:.0f} QPS" if nq else ""
-    log(f"[main] {name}: {dt:.3f} s{qps}, peak {mem:.0f} MiB")
+    log(f"[{tag}] {name}: {dt:.3f} s{qps}, peak {mem:.0f} MiB")
     return out
 
 
@@ -439,7 +511,8 @@ def phase_main_path() -> tuple[dict, dict]:
     assert np.isfinite(d_ref).all() and (l_ref >= 0).all()
     assert top1 >= 0.9, top1
     assert r_ref >= r_dec, (r_ref, r_dec)
-    return launches, {"idx": idx, "queries": queries, "gt": gt, "r_dec": r_dec}
+    return launches, {"idx": idx, "base": base, "queries": queries, "gt": gt,
+                      "r_dec": r_dec}
 
 
 def _device_split(prof, names) -> tuple[dict, float]:
@@ -543,6 +616,80 @@ def phase_ivf_path(ctx: dict) -> dict:
     return launches
 
 
+def _fast_search(idx, queries, gt, what: str, k: int = 100, **kw):
+    """One timed FAST-path search (after a first call that is not timed
+    apart); logs avg_recall@100 and returns the result."""
+    from vaq_tpu_torch import metrics
+    d, l = _step(f"search {what}", lambda: idx.search(queries, k, **kw),
+                 NQ_MAIN, "fast")
+    assert l.shape == (NQ_MAIN, k) and (l >= 0).all() and np.isfinite(d).all(), what
+    log(f"[fast] {what}: avg_recall@100 "
+        f"{metrics.avg_recall(l[:, :100], gt, 100):.4f}")
+    return d, l
+
+
+def phase_fast_path(ctx: dict) -> dict:
+    """The FAST/LUT path at 1M × 128 on FAST_METHOD: K3 before the LUT
+    quantization is learned, K4 after it, the LUT gather scan, "auto" (the
+    codes tier, K1/K2, by the route JAX takes on an accelerator) and refine
+    from a fast4 search; returns K3's and K4's launches."""
+    import vaq_tpu_torch as vt
+    from vaq_tpu_torch import metrics
+    from vaq_tpu_torch.ops import scan_codes
+    base, queries, gt = ctx["base"], ctx["queries"], ctx["gt"]
+    counts = scan_codes.fast4_window_scan.launches
+    dev = torch.device(DEVICE)
+    idx = vt.VAQIndex(vt.parse_method_string(FAST_METHOD), device=dev)
+    _step("train", lambda: idx.train(base), tag="fast")
+    log(f"[fast] bits {idx.bits.tolist()}")
+    _step("encode", lambda: idx.encode(base), tag="fast")
+
+    counts.update(K3=0, K4=0)
+    _step("search fast4, f32 LUT (K3), first call",
+          lambda: idx.search(queries, 100, backend="fast4"), NQ_MAIN, "fast")
+    _fast_search(idx, queries, gt, "fast4, f32 LUT (K3)", backend="fast4")
+    k3 = counts["K3"]
+    assert k3 > 0 and counts["K4"] == 0, counts
+
+    _step("learn_quantization(base, 0.1)",
+          lambda: idx.learn_quantization(base, 0.1), tag="fast")
+    counts.update(K3=0, K4=0)
+    _step("search fast4, u8 LUT (K4), first call",
+          lambda: idx.search(queries, 100, backend="fast4"), NQ_MAIN, "fast")
+    _fast_search(idx, queries, gt, "fast4, u8 LUT (K4)", backend="fast4")
+    _fast_search(idx, queries, gt, "lut_gather, dequantized LUT",
+                 backend="lut_gather")
+    k4 = counts["K4"]
+    assert k4 > 0 and counts["K3"] == 0, counts
+
+    # "auto" on a quantized FAST index: "lut", which JAX's accelerator rule
+    # serves from the codes tier when enough windows form
+    counts.update(K3=0, K4=0)
+    scan_codes.decode_window_scan.launches = 0
+    _step("search auto, first call", lambda: idx.search(queries, 100),
+          NQ_MAIN, "fast")
+    _fast_search(idx, queries, gt, "auto (codes tier)")
+    log(f"[fast] auto: K1 launches {scan_codes.decode_window_scan.launches}, "
+        f"K3/K4 {counts}")
+    assert scan_codes.decode_window_scan.launches > 0, "auto did not run K1"
+    assert counts == {"K3": 0, "K4": 0}, counts
+
+    counts.update(K3=0, K4=0)
+    _, cand = _fast_search(idx, queries, gt, "fast4 k=200 (K4)", k=200,
+                           backend="fast4")
+    d_ref, l_ref = _step("refine 200->100",
+                         lambda: idx.refine(queries, cand, base, 100), NQ_MAIN,
+                         "fast")
+    k4 += counts["K4"]
+    assert counts["K4"] > 0 and counts["K3"] == 0, counts
+    assert np.isfinite(d_ref).all() and (l_ref >= 0).all()
+    log(f"[fast] refined 200->100 avg_recall@100 "
+        f"{metrics.avg_recall(l_ref, gt, 100):.4f}")
+    launches = {"fast4_window_scan": k3, "fast4_window_scan_int8": k4}
+    log(f"[fast] kernel launches during the FAST path: {launches}")
+    return launches
+
+
 def _ivf_card_vs_cpu(gpu, cpu, queries, ti_segments: int) -> None:
     """One IVF state built on the card, copied to the CPU, searched on both
     with the decoded tier resident (nq ≤ 256: qcap = nq, nothing drops)."""
@@ -573,6 +720,36 @@ def _ivf_card_vs_cpu(gpu, cpu, queries, ti_segments: int) -> None:
         f"{float(np.max(np.abs(dg - dc) / dc)):.3g})")
     assert (ig >= 0).all() and agree >= 0.99, agree
     assert rel <= 1e-4, rel
+
+
+def _fast_card_vs_cpu() -> None:
+    """A 20k FAST state, its LUT quantizers learned on the card, searched on
+    the card and on the CPU through fast4 (K3 without the quantizers, K4
+    with them) and the LUT gather scan."""
+    import vaq_tpu_torch as vt
+    from vaq_tpu_torch import data
+    from vaq_tpu_torch.convert import index_from_numpy
+    base, queries = data.make_anisotropic_gaussian(N_CMP, D_MAIN, NQ_CMP,
+                                                   seed=SEED + 3)
+    trained = vt.VAQIndex(vt.parse_method_string(FAST_METHOD),
+                          device=DEVICE).build(base)
+    trained.learn_quantization(base, 0.1)
+    arrays, meta = trained.state()
+    plain = {k: v for k, v in arrays.items() if not k.startswith("lut_")}
+    for what, state, backend in (("fast4 K3", plain, "fast4"),
+                                 ("fast4 K4", arrays, "fast4"),
+                                 ("lut_gather", arrays, "lut_gather")):
+        gpu = index_from_numpy(state, meta, DEVICE)
+        cpu = index_from_numpy(state, meta, "cpu")
+        dg, ig = gpu.search(queries, K_CMP, backend=backend)
+        dc, ic = cpu.search(queries, K_CMP, backend=backend)
+        agree = float(np.mean([len(set(ig[q]) & set(ic[q])) / K_CMP
+                               for q in range(NQ_CMP)]))
+        log(f"[cmp] FAST {what}: top-{K_CMP} id agreement card vs cpu "
+            f"{agree:.4f}, ids equal on {float((ig == ic).mean()):.4f} of "
+            f"entries, max rel Δdist {float(np.max(np.abs(dg - dc) / dc)):.3g}")
+        assert (ig >= 0).all() and agree >= 0.99, (what, agree)
+        np.testing.assert_allclose(dg, dc, rtol=1e-4)
 
 
 def phase_card_vs_cpu() -> None:
@@ -610,6 +787,7 @@ def phase_card_vs_cpu() -> None:
     arrays, meta = trained.state()
     _ivf_card_vs_cpu(index_from_numpy(arrays, meta, DEVICE),
                      index_from_numpy(arrays, meta, "cpu"), queries96, 24)
+    _fast_card_vs_cpu()
 
 
 def main() -> int:
@@ -624,13 +802,17 @@ def main() -> int:
     log(f"[kernels] clocks.sm, clocks.max.sm, power.draw, temperature: {_clocks()}")
     launches, ctx = phase_main_path()
     launches.update(phase_ivf_path(ctx))
+    ctx["idx"] = None
+    torch.cuda.empty_cache()
+    launches.update(phase_fast_path(ctx))
     del ctx
     torch.cuda.empty_cache()
     phase_card_vs_cpu()
     for kern in kernels:
-        # a d = 96 or bf16 check is the same kernel as its d = 128 int8 one
-        kern["launches"] = next(n for name, n in launches.items()
-                                if kern["name"].startswith(name))
+        # a d = 96, bf16 or C = 256 check is the same kernel as the main
+        # path's: the longest counter name that prefixes the check's
+        name = max((n for n in launches if kern["name"].startswith(n)), key=len)
+        kern["launches"] = launches[name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 ``decode_window_scan``, K2
-``decode_rescore``, K5 ``groupmin_window_scan``, K7 ``gather_rescore``)
-against their plain PyTorch versions, on a CUDA card.
+``decode_rescore``, K3/K4 ``fast4_window_scan``, K5 ``groupmin_window_scan``,
+K7 ``gather_rescore``) against their plain PyTorch versions, on a CUDA
+card.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports neither jax nor vaq_tpu, so on the machine with the card it runs
@@ -10,7 +11,10 @@ without them:
 
 The helpers are shared with tests/test_torch_scan_codes.py,
 test_torch_groupmin.py and test_torch_gather_rescore.py, which hold the
-plain versions against vaq_tpu's Pallas kernels on the CPU. Tolerances: K1's
+plain versions against vaq_tpu's Pallas kernels on the CPU. K3 and K4 add
+the same entries in the same order as their plain version (K3 in f32, one
+subspace after another; K4 in int32), so their keys are equal bit for bit.
+Tolerances: K1's
 scores keep only 23 − idx_bits mantissa bits, so they agree to 1e-5 plus one
 packed-key step, 2^(idx_bits − 23) relative, and window winners agree
 except where two rows tie within that; K2 sums squares: rtol 1e-5. K5 and
@@ -258,3 +262,36 @@ def test_gather_rescore_kernel_matches_plain(cuda, dtype, shape):
     ok[0, 0] = ok[-1, -1] = False
     assert_scores_close(got[ok], ref[ok],
                         rescore_term_scale(q, w, rows, wblk, gs)[ok])
+
+
+# (n, M, C, nq, block_rows) for K3/K4: the main FAST shape cut in rows, the
+# C = 256 shape, windows that span blocks or are not warp-aligned, M with a
+# ragged last code word, one-row windows, C = 8, and several query tiles
+FAST4_SHAPES = [(100_000, 64, 16, 70, 256), (32_768, 32, 256, 20, 512),
+                (5000, 8, 16, 9, 24), (3000, 13, 16, 5, 16),
+                (2000, 4, 8, 3, 1), (40_000, 64, 16, 600, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("shape", FAST4_SHAPES)
+def test_fast4_window_scan_kernel_matches_plain(cuda, shape, int8):
+    n, m, c, nq, br = shape
+    rng = np.random.default_rng(7)
+    codes = torch.as_tensor(rng.integers(0, c, (n, m)).astype(np.uint8),
+                            device=cuda)
+    if int8:
+        luts = rng.integers(-128, 128, (nq, m, c)).astype(np.int8)
+    else:   # some entries below 0, so some sums clamp at 0 and tie
+        luts = (rng.random((nq, m, c)) * 4.0 - 0.1).astype(np.float32)
+    luts = torch.as_tensor(luts, device=cuda)
+    n_win = -(-n // br) + 1          # one window past the rows: all code 0
+    kernel = "K4" if int8 else "K3"
+    before = dict(scan_codes.fast4_window_scan.launches)
+    s_k, i_k = scan_codes.fast4_window_scan(codes, luts, br, n_win)
+    torch.cuda.synchronize()
+    assert scan_codes.fast4_window_scan.launches == {
+        **before, kernel: before[kernel] + 1}
+    s_r, i_r = scan_codes.fast4_window_scan_ref(codes, luts, br, n_win)
+    assert s_k.dtype == (torch.int32 if int8 else torch.float32)
+    assert torch.equal(s_k, s_r) and torch.equal(i_k, i_r)

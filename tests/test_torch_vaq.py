@@ -10,6 +10,7 @@ at the k-th distance (``assert_topk_match``).
 """
 
 import dataclasses
+import io
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 import vaq_tpu
 import vaq_tpu_torch
 from test_torch_scan_decoded import assert_topk_match
+from vaq_tpu_torch import io as port_io
 from vaq_tpu_torch import metrics
 from vaq_tpu_torch.convert import index_from_numpy
 from vaq_tpu_torch.errors import ConfigError, NotReadyError, ShapeError
@@ -36,6 +38,9 @@ def jax_state(idx):
     arrays["codes"] = idx.codes_rowmajor()
     if idx.deleted_ids is not None:
         arrays["deleted_ids"] = idx.deleted_ids
+    if idx.lut_offsets is not None:
+        arrays["lut_offsets"] = idx.lut_offsets
+        arrays["lut_scales"] = idx.lut_scales
     cfg = {k: v for k, v in dataclasses.asdict(idx.config).items()
            if k not in ("methods", "hardcoded_bits")}
     meta = {"config": {**cfg, "methods": int(idx.config.methods),
@@ -186,14 +191,18 @@ def test_metrics_match_jax():
 
 
 def test_unported_backends_and_bad_inputs_raise(pair):
+    """search_device serves the decoded, int8 and codes tiers only: the LUT
+    backends raise there (JAX serves the decoded tier instead) and run
+    through search(); unknown backends, bad shapes and an untrained index
+    raise."""
     _, queries, _, tidx = pair
-    for backend in ("lut", "fast4", "lut_gather"):
-        with pytest.raises(ConfigError, match="ROADMAP slice"):
-            tidx.search(queries, 5, backend=backend)
-        with pytest.raises(ConfigError, match="ROADMAP slice"):
+    for backend in ("lut", "fast4", "lut_gather", "auto", "ivf"):
+        with pytest.raises(ConfigError, match="runs through search"):
             tidx.search_device(torch.as_tensor(queries), 5, backend=backend)
     with pytest.raises(ConfigError, match="unknown backend"):
         tidx.search(queries, 5, backend="bogus")
+    with pytest.raises(ConfigError, match="unknown backend"):
+        tidx.search_device(torch.as_tensor(queries), 5, backend="bogus")
     with pytest.raises(ShapeError):
         tidx.search(queries[:, :10], 5)
     with pytest.raises(ShapeError):
@@ -203,12 +212,15 @@ def test_unported_backends_and_bad_inputs_raise(pair):
         fresh.search(queries, 5)
     with pytest.raises(NotReadyError):
         fresh.encode(queries)
+    with pytest.raises(NotReadyError):
+        fresh.learn_quantization(queries)
 
 
 def test_unported_fast_search_and_wide_training_raise(pair, tmp_path):
-    """A FAST-family index loads (its LUT quantizers survive a save/load
-    round trip) but its auto search raises until slice 3; >8-bit
-    hierarchical codebooks raise in train."""
+    """A FAST-family index with LUT quantizers survives a save/load round
+    trip, and its auto search (the quantized LUT gather scan on the CPU)
+    matches JAX's on the same state; >8-bit hierarchical codebooks raise in
+    train."""
     _, queries, jidx, _ = pair
     arrays, meta = jax_state(jidx)
     meta["config"]["methods"] = int(vaq_tpu_torch.SearchMethod.FAST2)
@@ -216,13 +228,15 @@ def test_unported_fast_search_and_wide_training_raise(pair, tmp_path):
     arrays["lut_offsets"] = np.linspace(0, 1, m, dtype=np.float32)
     arrays["lut_scales"] = np.full(m, 3.0, np.float32)
     fast = index_from_numpy(arrays, meta, "cpu")
-    with pytest.raises(ConfigError, match="FAST"):
-        fast.search(queries, 5)
     fast.save(str(tmp_path / "fast.npz"))
     back = vaq_tpu_torch.VAQIndex.load(str(tmp_path / "fast.npz"),
                                        device="cpu")
     np.testing.assert_array_equal(back.lut_offsets, arrays["lut_offsets"])
     np.testing.assert_array_equal(back.lut_scales, arrays["lut_scales"])
+    jfast = vaq_tpu.VAQIndex.load(str(tmp_path / "fast.npz"))
+    d_j, i_j = jfast.search(queries, 5)
+    d_t, i_t = back.search(queries, 5)
+    assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-5)
     wide = vaq_tpu_torch.VAQConfig(bit_budget=38, subspace_num=4,
                                    min_bits=9, max_bits=10,
                                    hierarchical_kmeans=True)
@@ -268,3 +282,199 @@ def test_decoded8_tier_matches_jax(pair, k):
     d_t, i_t = tidx.search(queries, k, backend="decoded8", query_batch=5)
     assert tidx.decoded8.dtype == torch.int8
     assert_topk_match(d_t, i_t, np.asarray(d_j), np.asarray(i_j), rtol=1e-6)
+
+
+# --- The FAST/LUT family (tests/test_vaq_e2e.py:129-190, 335-352, 437-470) --
+
+FAST = "VAQ128m32min1max4var1,FAST"
+FAST3 = "VAQ96m16min2max8var1,FAST3"
+FAST_LOW = "VAQ48m16min1max3var1,FAST"     # C = 8: the LUTs pad to 16
+
+
+@pytest.fixture(scope="module")
+def fast_data():
+    from vaq_tpu.data import make_sift_like
+    base, queries, _ = make_sift_like(n=4000, n_queries=8, d=64, seed=5)
+    return base, queries
+
+
+@pytest.fixture(scope="module")
+def fast_pairs(fast_data):
+    """Per config: (JAX index after learn_quantization, port index on its
+    state, port index on its state without the LUT quantizers)."""
+    base, _ = fast_data
+    out = {}
+    for method in (FAST, FAST3, FAST_LOW):
+        jidx = vaq_tpu.VAQIndex(vaq_tpu.parse_method_string(method))
+        jidx.train(base).encode(base)
+        plain = index_from_numpy(*jax_state(jidx), "cpu")
+        jidx.learn_quantization(base, sample_ratio=0.05)
+        out[method] = (jidx, index_from_numpy(*jax_state(jidx), "cpu"),
+                       plain)
+    return out
+
+
+@pytest.mark.parametrize("method", [FAST, FAST3, FAST_LOW])
+def test_learn_quantization_matches_jax(fast_pairs, fast_data, method):
+    """The same sample, α grid, quantiles and losses: JAX's α wins, with
+    its offsets and scales to rtol 1e-5. The offsets are quantiles of LUT
+    entries, so they carry the LUT build's tolerance (test_torch_scan_lut):
+    1e-5 of the LUT's size as well, here its (1 − α) quantile,
+    offset + 255/scale."""
+    jidx, _, plain = fast_pairs[method]
+    plain.learn_quantization(fast_data[0], sample_ratio=0.05)
+    size = np.max(jidx.lut_offsets + 255.0 / jidx.lut_scales)
+    np.testing.assert_allclose(plain.lut_offsets, jidx.lut_offsets,
+                               rtol=1e-5, atol=1e-5 * size)
+    np.testing.assert_allclose(plain.lut_scales, jidx.lut_scales, rtol=1e-5)
+    plain.lut_offsets = plain.lut_scales = None
+
+
+def test_learn_quantization_device_matches_jax(fast_pairs):
+    """The α-grid search itself on one f32 LUT sample: JAX's offsets and
+    scales to rtol 1e-5, its losses to rtol 1e-4 (f32 sums of 108,000
+    squared errors each, blocked and reduced in another order), and the
+    same α; a quarter of the entries are padding."""
+    from vaq_tpu.vaq import _learn_quantization_device as jax_learn
+    from vaq_tpu_torch.vaq import LUT_ALPHAS, _learn_quantization_device
+    rng = np.random.default_rng(11)
+    luts = (rng.random((1500, 6, 16)) ** 2 * 50.0).astype(np.float32)
+    counts = np.array([16, 8, 16, 4, 16, 12], np.int32)
+    valid = np.arange(16)[None, :] < counts[:, None]
+    alphas = np.asarray(LUT_ALPHAS, np.float32)
+    want = [np.asarray(a) for a in jax_learn(
+        jnp.asarray(luts), jnp.asarray(valid), jnp.asarray(counts),
+        jnp.asarray(alphas))]
+    got = [a.numpy() for a in _learn_quantization_device(
+        torch.as_tensor(luts), torch.as_tensor(valid),
+        torch.as_tensor(counts), torch.as_tensor(alphas))]
+    for g, w, rtol in zip(got, want, (1e-5, 1e-5, 1e-4)):
+        np.testing.assert_allclose(g, w, rtol=rtol)
+    best = [int(np.flatnonzero(x[2] <= x[2].min())[-1]) for x in (got, want)]
+    assert best[0] == best[1]
+
+
+@pytest.mark.parametrize("method,backend,quantized", [
+    (FAST, "fast4", True), (FAST, "fast4", False), (FAST, "lut", True),
+    (FAST, "lut_gather", True), (FAST, "auto", True),
+    (FAST3, "auto", True), (FAST3, "lut_gather", True),
+    (FAST_LOW, "fast4", True), (FAST_LOW, "fast4", False),
+    (FAST_LOW, "lut_gather", True),
+])
+def test_fast_search_matches_jax(fast_pairs, fast_data, method, backend,
+                                 quantized):
+    """On the CPU JAX runs fast4 in interpret mode and serves "lut" and
+    "auto" by the gather scan; the port takes the same routes. Quantized:
+    K4 picks the winners on the u8 sums, distances are sums of the
+    dequantized tables (FAST3: only its ≤ 4-bit subspaces)."""
+    _, queries = fast_data
+    jidx, tq, tp = fast_pairs[method]
+    if not quantized:  # the same JAX state without its quantizers
+        arrays, meta = jax_state(jidx)
+        del arrays["lut_offsets"], arrays["lut_scales"]
+        jidx = _jax_index(arrays, meta)
+    tidx = tq if quantized else tp
+    d_j, i_j = jidx.search(queries, 5, backend=backend)
+    d_t, i_t = tidx.search(queries, 5, backend=backend, query_batch=5)
+    assert (i_t >= 0).all() and np.isfinite(d_t).all()
+    assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-5)
+
+
+def _jax_index(arrays, meta):
+    """A vaq_tpu index holding a numpy state (its own npz loader)."""
+    buf = io.BytesIO()
+    port_io.save_index_npz(buf, arrays, meta)
+    buf.seek(0)
+    return vaq_tpu.VAQIndex.load(buf)
+
+
+def test_fast4_on_wide_index_raises(fast_pairs, fast_data):
+    """fast4 keeps the reference's ≤ 4-bit constraint (VAQ.cpp:1263-1266):
+    the FAST3 config allocates 8-bit subspaces."""
+    _, tidx, _ = fast_pairs[FAST3]
+    assert int(tidx.bits.max()) > 4
+    with pytest.raises(ConfigError, match="max_bits <= 4"):
+        tidx.search(fast_data[1], 5, backend="fast4")
+
+
+@pytest.mark.parametrize("backend", ["fast4", "lut_gather", "auto"])
+def test_lut_paths_drop_tombstones_like_jax(fast_pairs, fast_data, backend):
+    """The LUT paths over-fetch k + #deleted and compact on the host with a
+    stable argsort, as JAX's search() does (vaq.py:666-676, 807-818)."""
+    _, queries = fast_data
+    jidx = _jax_index(*jax_state(fast_pairs[FAST][0]))
+    _, i0 = jidx.search(queries, 5, backend=backend)
+    dead = np.unique(i0[:, :2])
+    jidx.delete(dead)
+    d_j, i_j = jidx.search(queries, 5, backend=backend)
+    tdel = index_from_numpy(*jax_state(jidx), "cpu")
+    d_t, i_t = tdel.search(queries, 5, backend=backend)
+    assert not np.isin(i_t, dead).any()
+    assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-5)
+
+
+# _lut_route against the table of JAX's rule (vaq_tpu/vaq.py:626-800); the
+# arguments are (backend, methods, max_bits, n_rows, k, codes_br, quantized,
+# has_ivf), the results (on the card, on the CPU).
+_SM = vaq_tpu_torch.SearchMethod
+ROUTES = [
+    (("auto", _SM.TI, 8, 10**6, 100, 128, False, True), ("ivf", "ivf")),
+    (("auto", _SM.TI | _SM.FAST, 4, 10**6, 100, 128, True, True),
+     ("ivf", "ivf")),
+    (("auto", _SM.TI, 8, 10**6, 100, 128, False, False),
+     ("decoded", "decoded")),
+    (("auto", _SM.FAST, 4, 10**6, 100, 128, True, False),
+     ("lut_codes", "lut_gather")),
+    (("auto", _SM.FAST3, 8, 10**6, 100, 128, True, False),
+     ("lut_codes", "lut_gather")),
+    (("auto", _SM.FAST, 4, 10**6, 100, 128, False, False),
+     ("decoded", "decoded")),
+    (("auto", _SM.HEAP, 8, 10**6, 100, 128, False, False),
+     ("decoded", "decoded")),
+    (("lut", _SM.HEAP, 8, 10**6, 100, 128, False, False),
+     ("lut_codes", "lut_gather")),
+    (("lut", _SM.HEAP, 8, 8000, 20, None, False, False),
+     ("fast4", "lut_gather")),          # no 16-row windows, but n ≥ 64·k
+    (("lut", _SM.HEAP, 8, 1000, 20, None, False, False),
+     ("lut_gather", "lut_gather")),     # n < 64·k
+    (("lut", _SM.HEAP, 9, 10**6, 100, 128, False, False),
+     ("lut_gather", "lut_gather")),     # codes wider than u8
+    (("fast4", _SM.FAST, 4, 10**6, 100, 128, True, False),
+     ("fast4", "fast4")),
+    (("fast4", _SM.HEAP, 3, 1000, 100, None, False, False),
+     ("fast4", "fast4")),               # forced, whatever the windows
+    (("fast4", _SM.FAST3, 8, 10**6, 100, 128, True, False),
+     (ConfigError, ConfigError)),
+    (("lut_gather", _SM.FAST, 4, 10**6, 100, 128, True, False),
+     ("lut_gather", "lut_gather")),
+    (("codes", _SM.FAST, 4, 10**6, 100, 128, True, False),
+     ("codes", "codes")),
+    (("decoded8", _SM.HEAP, 8, 10**6, 100, 128, False, False),
+     ("decoded8", "decoded8")),
+    (("ivf", _SM.HEAP, 8, 10**6, 100, 128, False, True), ("ivf", "ivf")),
+    (("bogus", _SM.HEAP, 8, 10**6, 100, 128, False, False),
+     (ConfigError, ConfigError)),
+]
+
+
+@pytest.mark.parametrize("on_cuda", [True, False])
+@pytest.mark.parametrize("args,want", ROUTES)
+def test_lut_route_follows_the_jax_rule(args, want, on_cuda):
+    from vaq_tpu_torch.vaq import _lut_route
+    backend, methods, max_bits, n_rows, k, br, quantized, has_ivf = args
+    expect = want[0] if on_cuda else want[1]
+    call = lambda: _lut_route(backend, methods, max_bits, n_rows, k, br,  # noqa: E731
+                              quantized, on_cuda, has_ivf)
+    if expect is ConfigError:
+        with pytest.raises(ConfigError):
+            call()
+    else:
+        assert call() == expect
+
+
+def test_fast4_block_rows_is_the_jax_rule():
+    from vaq_tpu_torch.vaq import _fast4_block_rows
+    for n, k, want in ((10**6, 100, 256), (10**6, 10, 512), (4000, 5, 256),
+                       (5 * 10**6, 100, 512), (3 * 10**6, 100, 256)):
+        br = max(256, min(512, n // (64 * k)))
+        assert _fast4_block_rows(n, k) == 1 << (br.bit_length() - 1) == want

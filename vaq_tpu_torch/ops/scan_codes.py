@@ -1,10 +1,12 @@
-"""Codes-resident search: decode-then-dot over the raw u8 codes.
+"""Codes-resident search over the raw u8 codes: decode-then-dot, and the
+FAST window scan over per-query LUTs.
 
-The counterpart of the decode path of ``vaq_tpu/ops/scan_pallas.py``
+The counterpart of ``vaq_tpu/ops/scan_pallas.py``: the decode path
 (``decode_window_scan``, ``decode_rescore``, ``decode_scan_topk`` and the two
-table builders). Device memory holds only the codes, M bytes per row, stored
-row-major (n, M) u8; the TPU's transposed (M, n) layout existed only for its
-u8 tile. The search is
+table builders) and the FAST path (``fast4_window_scan``,
+``fast4_scan_topk``, scan_pallas.py:190-280, 636-701). Device memory holds
+only the codes, M bytes per row, stored row-major (n, M) u8; the TPU's
+transposed (M, n) layout existed only for its u8 tile. The decode search is
 
 1. **K1** ``decode_window_scan`` (``csrc/decode_window_scan.cu``): for each
    (query, window of ``block_rows`` rows) the best row by
@@ -16,14 +18,25 @@ u8 tile. The search is
    ``‖q − x̂‖²`` of the winners from the f32 decode rows;
 4. a top-k of those.
 
+The FAST search (``backend="fast4"``) is
+
+1. **K3/K4** ``fast4_window_scan`` (``csrc/fast4_window_scan.cu``): for each
+   (query, window) the best row by the LUT sum ``Σ_s lut[q, s, code_s]``,
+   over the bf16-rounded f32 LUT (K3) or over the u8-quantized LUT shifted
+   to s8 (K4, the reference's FAST winner semantics);
+2. the top-k windows by :func:`_select_lowest`, which breaks ties toward
+   the lower window as ``jax.lax.top_k`` does (K4's integer sums tie often);
+3. the f32 LUT sum of each winner, and a top-k of those, by the same helper.
+
 Each kernel wrapper takes its plain PyTorch version (``*_ref`` below) only
 for tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
-Each counts its kernel launches in a plain int attribute, ``launches``.
+Each counts its kernel launches in a plain int attribute, ``launches``
+(``fast4_window_scan``, which launches K3 or K4, in a dict of two).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +45,23 @@ from vaq_tpu_torch import _build
 from vaq_tpu_torch.device import DEFAULT, resolve
 
 _INT32_MAX = 2**31 - 1
-# Rows per chunk of the plain K1 version (bounds its (nq, rows) f32 scores).
+# Rows per chunk of the plain K1/K3/K4 versions (bounds their (nq, rows)
+# scores).
 _REF_CHUNK_ROWS = 65536
+# fast4_scan_topk pads the rows to a multiple of W_PER_CELL·block_rows, as
+# JAX's grid cells do (scan_pallas.py:76, 661): the padded window count sets
+# kk and so which windows can win.
+W_PER_CELL = 8
+# K3/K4 geometry (csrc/fast4_window_scan.cu): rows per block, one per
+# thread; the shared memory a block gives its query tile's LUT and the
+# queries a tile holds at most (the best of a sweep on an H100,
+# scripts/fast4_tile_sweep.py: two blocks fit an SM); the queries a thread
+# sums at once; the shared memory a block may have on an H100.
+_FAST4_ROWS = 256
+_FAST4_LUT_BYTES = 64 * 1024
+_FAST4_MAX_Q_TILE = 32
+_FAST4_QJ = 8
+_SMEM_LIMIT = 232448
 # Centroid magnitudes at or above this are sentinels, zeroed in the tables
 # (scan_pallas.py:461,555). vaq.PAD_SENTINEL (1e18) stays below it, as in the
 # JAX tables; codes never address padded rows either way.
@@ -245,5 +273,201 @@ def decode_scan_topk(codes: torch.Tensor, table: torch.Tensor,
         d2 = torch.nn.functional.pad(d2, (0, k - kk), value=torch.inf)
         top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
     top, pos2 = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    out_ids = torch.gather(top_ids, 1, pos2)
+    return top, torch.where(torch.isfinite(top), out_ids, -1)
+
+
+def _select_lowest(scores: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest entries along dim 1, ascending, ties to the lower
+    position: (values, positions int64), the order ``jax.lax.top_k(−x)``
+    gives. A stable sort does it; ``torch.topk`` picks another set among
+    equal scores. The FAST and LUT-gather paths select with this alone."""
+    vals, pos = torch.sort(scores, dim=1, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def lut_sums(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """(nq, rows) ``Σ_s luts[q, s, codes[row, s]]`` in ``luts``' dtype,
+    added one subspace at a time, s = 0 … M−1, into one (nq, rows) buffer
+    (the order K3 adds in)."""
+    codes = codes.to(torch.int64)
+    acc = torch.zeros((luts.shape[0], codes.shape[0]), dtype=luts.dtype,
+                      device=luts.device)
+    for s in range(codes.shape[1]):
+        acc += torch.index_select(luts[:, s, :], 1, codes[:, s])
+    return acc
+
+
+def _unpack_fast4(keys: torch.Tensor, block_rows: int, int8: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3/K4 keys → (scores, global row ids int32): f32 scores with the
+    index bits zeroed for K3, the int32 sums ``key >> idx_bits`` for K4."""
+    if not int8:
+        return _unpack(keys, block_rows)
+    idx_bits = _idx_bits(block_rows)
+    base = torch.arange(keys.shape[1], dtype=torch.int32,
+                        device=keys.device) * block_rows
+    return keys >> idx_bits, (keys & ((1 << idx_bits) - 1)) + base[None, :]
+
+
+def _check_fast4(codes, luts, block_rows, n_win):
+    """Shape and dtype checks shared by K3/K4 and their plain version;
+    returns (n_win, int8)."""
+    dev = codes.device
+    int8 = luts.dtype == torch.int8
+    _check(codes, "codes", torch.uint8, 2, dev)
+    _check(luts, "luts", torch.int8 if int8 else torch.float32, 3, dev)
+    n, m = codes.shape
+    c = luts.shape[2]
+    if luts.shape[1] != m:
+        raise ValueError(f"codes (n, {m}) and luts {tuple(luts.shape)} "
+                         "disagree on M")
+    if c & (c - 1) or c > 256:
+        raise ValueError(f"LUT width {c} must be a power of 2 <= 256")
+    n_win = -(-n // block_rows) if n_win is None else n_win
+    if n_win * block_rows < n:
+        raise ValueError(f"{n_win} windows of {block_rows} rows do not "
+                         f"cover {n} rows")
+    if int8 and m << _idx_bits(block_rows) > 1 << 24:
+        raise ValueError(f"M = {m} at {block_rows}-row windows overflows "
+                         "K4's packed int32 key (M·2^idx_bits ≤ 2^24)")
+    return n_win, int8
+
+
+def _fast4_tile(m: int, c: int, lut_bytes: int, nq: int, block_rows: int
+                ) -> Tuple[int, int]:
+    """(queries per block, dynamic shared memory bytes) of K3/K4: the
+    block's codes (256 rows, ceil(M/4) words each padded to an odd count),
+    its window minima and its query tile's LUT; the tile is as large as
+    ``_FAST4_LUT_BYTES`` allows, at least one query, and whole groups of the
+    kernel's 8 accumulators once it holds 8."""
+    per_q = m * c * lut_bytes
+    q_tile = max(1, min(_FAST4_MAX_Q_TILE, _FAST4_LUT_BYTES // per_q, nq))
+    if q_tile >= _FAST4_QJ:
+        q_tile -= q_tile % _FAST4_QJ
+    words = ((m + 3) // 4) | 1
+    win_per_tile = min(_FAST4_ROWS, (_FAST4_ROWS - 1) // block_rows + 2)
+    smem = 4 * (_FAST4_ROWS * words + q_tile * win_per_tile) + q_tile * per_q
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"K3/K4: one query's LUT ({per_q} B at M = {m}, "
+                         f"C = {c}) does not fit a block's shared memory")
+    return q_tile, smem
+
+
+def fast4_window_scan_ref(codes: torch.Tensor, luts: torch.Tensor,
+                          block_rows: int, n_win: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3/K4, same arguments and result. K3 adds
+    the bf16-rounded entries in f32 in subspace order, as the kernel does,
+    so the two give the same keys bit for bit; K4 sums in int32."""
+    n_win, int8 = _check_fast4(codes, luts, block_rows, n_win)
+    n = codes.shape[0]
+    nq = luts.shape[0]
+    dev = codes.device
+    idx_bits = _idx_bits(block_rows)
+    mask = (1 << idx_bits) - 1
+    tbl = (luts.to(torch.int32) if int8
+           else luts.to(torch.bfloat16).to(torch.float32))
+    keys = torch.empty((nq, n_win), dtype=torch.int32, device=dev)
+    wins = max(1, _REF_CHUNK_ROWS // block_rows)
+    for w_start in range(0, n_win, wins):
+        w_end = min(n_win, w_start + wins)
+        rs, re = w_start * block_rows, w_end * block_rows
+        blk = codes[rs:min(re, n)].to(torch.int64)
+        # rows past n count as code 0, like JAX's zero-padded codes
+        blk = torch.nn.functional.pad(blk, (0, 0, 0, re - rs - blk.shape[0]))
+        acc = lut_sums(blk, tbl)
+        local = torch.arange(re - rs, dtype=torch.int32, device=dev) % block_rows
+        if int8:
+            k = acc * (1 << idx_bits) | local[None, :]
+        else:
+            acc = torch.where(acc > 0, acc, 0.0).contiguous()
+            k = (acc.view(torch.int32) & ~mask) | local[None, :]
+        keys[:, w_start:w_end] = k.reshape(nq, w_end - w_start,
+                                           block_rows).amin(dim=2)
+    return _unpack_fast4(keys, block_rows, int8)
+
+
+def fast4_window_scan(codes: torch.Tensor, luts: torch.Tensor,
+                      block_rows: int, n_win: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 (f32 ``luts``) or K4 (int8 ``luts``): per-(query, window) best row
+    of the LUT-sum scan.
+
+    codes (n, M) u8 row-major, every code < C; luts (nq, M, C), C a power
+    of 2 ≤ 256: f32 for K3, which sums the bf16-rounded entries in f32 and
+    clamps at 0, or int8 (the u8 LUT − 128) for K4, which sums in int32.
+    Windows are consecutive runs of ``block_rows`` rows, ``n_win`` of them
+    (enough to cover n by default); rows past n count as code 0. Returns
+    (scores (nq, n_win), row ids (nq, n_win) int32 global), as the JAX
+    ``fast4_window_scan`` does: f32 window minima with the low index bits
+    zeroed for K3, int32 sums for K4; ties go to the lower row.
+    """
+    n_win, int8 = _check_fast4(codes, luts, block_rows, n_win)
+    dev = codes.device
+    if dev.type == "cpu":
+        return fast4_window_scan_ref(codes, luts, block_rows, n_win)
+    if dev.type != "cuda":
+        raise ValueError(f"fast4_window_scan runs on cpu or cuda, not {dev}")
+    n, m = codes.shape
+    nq, _, c = luts.shape
+    q_tile, smem = _fast4_tile(m, c, 1 if int8 else 4, nq, block_rows)
+    keys = torch.full((nq, n_win), _INT32_MAX, dtype=torch.int32, device=dev)
+    if nq and n_win:
+        with torch.cuda.device(dev):
+            lib = _build.library()
+            err = lib.vaq_fast4_window_scan(
+                codes.data_ptr(), n, m, luts.data_ptr(), int(int8), nq, c,
+                block_rows, _idx_bits(block_rows), n_win, q_tile, smem,
+                keys.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check_launch(err, "fast4_window_scan")
+        fast4_window_scan.launches["K4" if int8 else "K3"] += 1
+    return _unpack_fast4(keys, block_rows, int8)
+
+
+# one wrapper, two kernels: a count for each
+fast4_window_scan.launches = {"K3": 0, "K4": 0}
+
+
+def fast4_scan_topk(codes: torch.Tensor, luts: torch.Tensor, k: int,
+                    block_rows: int = 512,
+                    luts8: Optional[torch.Tensor] = None,
+                    n_valid: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FAST-path search: window scan (K3, or K4 when ``luts8`` is given) →
+    top-k windows → the f32 ``luts`` sum of each window's winner → top-k.
+
+    codes (n, M) u8; luts (nq, M, C) f32; luts8 (nq, M, C) u8, the
+    quantized tables whose sums pick the winners (the reference's FAST
+    semantics, VAQ.cpp:1778-1836); rows at or past ``n_valid`` (default n)
+    never return. The rows are padded to a multiple of 8·``block_rows`` as
+    JAX pads them (scan_pallas.py:636-701): padded rows count as code 0 and
+    a window whose best row is padding carries no candidate. Both selections
+    break ties toward the lower position, as JAX's ``top_k`` does. Returns
+    (sq_dists (nq, k) f32 ascending, labels (nq, k) int32); −1 / +inf fill
+    missing entries.
+    """
+    n = codes.shape[0]
+    n_valid = n if n_valid is None else int(n_valid)
+    n_win = (n + (-n) % (W_PER_CELL * block_rows)) // block_rows
+    scan_luts = luts if luts8 is None else \
+        (luts8.to(torch.int16) - 128).to(torch.int8)
+    scores, ids = fast4_window_scan(codes, scan_luts, block_rows, n_win)
+    invalid = ids >= n_valid
+    big = _INT32_MAX if scores.dtype == torch.int32 else torch.inf
+    scores = torch.where(invalid, big, scores)
+    kk = min(k, n_win)
+    _, pos = _select_lowest(scores, kk)
+    top_ids = torch.where(torch.gather(invalid, 1, pos), -1,
+                          torch.gather(ids, 1, pos))
+    rows = top_ids.clamp(0, max(n - 1, 0)).to(torch.int64)
+    cand = codes[rows].to(torch.int64).transpose(1, 2)     # (nq, M, kk)
+    d2 = torch.gather(luts, 2, cand).sum(dim=1)
+    d2 = torch.where((top_ids >= 0) & (top_ids < n_valid), d2, torch.inf)
+    if kk < k:
+        d2 = torch.nn.functional.pad(d2, (0, k - kk), value=torch.inf)
+        top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
+    top, pos2 = _select_lowest(d2, k)
     out_ids = torch.gather(top_ids, 1, pos2)
     return top, torch.where(torch.isfinite(top), out_ids, -1)

@@ -12,15 +12,19 @@ Stage mapping (reference file:line → JAX counterpart):
   search   VAQ::search  VAQ.cpp:776-847  vaq.py:419-489, 587-819
   refine   VAQ::refine  VAQ.cpp:849-876  vaq.py:1063-1075
 
-``search`` serves four backends: ``"decoded"`` (bf16 decoded rows, a plain
-GEMM; what ``"auto"`` picks without TI), ``"decoded8"`` (the int8 tier, one
-scale per dimension), ``"codes"`` (only the u8 codes resident, searched by
-the hand-written CUDA kernels K1/K2 of ``ops/scan_codes.py``) and ``"ivf"``
-(the TI/IVF cluster probe of ``ivf.py``, kernels K5/K7, once ``attach_ivf``
-has built its buckets; ``"auto"`` takes it when the config has TI). The
-FAST/LUT backends come with a later port slice and raise ``ConfigError``
-until then. The index runs on ``device``, ``"cuda"`` unless the caller asks
-for the CPU.
+``search`` serves the JAX package's backends: ``"decoded"`` (bf16 decoded
+rows, a plain GEMM), ``"decoded8"`` (the int8 tier, one scale per
+dimension), ``"codes"`` (only the u8 codes resident, searched by the
+hand-written CUDA kernels K1/K2 of ``ops/scan_codes.py``), ``"ivf"`` (the
+TI/IVF cluster probe of ``ivf.py``, kernels K5/K7, once ``attach_ivf`` has
+built its buckets) and the FAST/LUT family: ``"fast4"`` (the window scan
+over per-query LUTs, kernels K3/K4), ``"lut_gather"`` (the LUT gather scan
+of ``ops/scan_lut.py``) and ``"lut"``, which picks among the codes tier,
+``fast4`` and the gather scan. ``"auto"`` takes the probe when the config
+has TI and the probe state exists, ``"lut"`` on a FAST-family config whose
+LUT quantization was learned (``learn_quantization``), else ``"decoded"``.
+:func:`_lut_route` holds the whole rule. The index runs on ``device``,
+``"cuda"`` unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from vaq_tpu_torch import bitalloc, io, kmeans, pca
+from vaq_tpu_torch import bitalloc, io, kmeans, pca, rng
 from vaq_tpu_torch.config import SearchMethod, VAQConfig
 from vaq_tpu_torch.device import DEFAULT, resolve
 from vaq_tpu_torch.errors import ConfigError, NotReadyError, ShapeError
@@ -42,12 +46,20 @@ from vaq_tpu_torch.ops import scan_codes, scan_decoded, scan_lut
 # small enough that its square stays finite in f32.
 PAD_SENTINEL = 1e18
 
-# JAX backends that later port slices bring (ROADMAP.md, queue 1).
-_LATER_BACKENDS = {
-    "lut": "the FAST/LUT family (ROADMAP slice 3)",
-    "fast4": "the FAST/LUT family (ROADMAP slice 3)",
-    "lut_gather": "the FAST/LUT family (ROADMAP slice 3)",
-}
+# Backends of search(); search_device serves the first three.
+BACKENDS = ("decoded", "decoded8", "codes", "ivf", "auto", "lut", "fast4",
+            "lut_gather")
+# Routes of _lut_route that run on per-query LUTs (or, for "lut_codes", that
+# "lut" sends to the codes tier): over-fetch and compact tombstones on the
+# host, as JAX's search() does for them.
+LUT_ROUTES = ("lut_codes", "fast4", "lut_gather")
+_FAST_FAMILY = SearchMethod.FAST | SearchMethod.FAST2 | SearchMethod.FAST3
+
+# The α grid of the LUT quantization search (reference VAQ.cpp:1118-1187,
+# vaq_tpu/vaq.py:572-573), its sample cap and its loss block.
+LUT_ALPHAS = (0.001, 0.002, 0.005, 0.01, 0.02, 0.05, 0.1)
+LUT_SAMPLE_CAP = 65536
+_LUT_LOSS_BLOCK = 1024
 
 
 # Rows per block of _encode_blocked: bounds its (M, rows, C) f32 scores
@@ -57,12 +69,101 @@ ENCODE_BLOCK_ROWS = 32768
 ENCODE_CHUNK_ROWS = 2_000_000
 
 
-def _check_backend(backend: str, served: Tuple[str, ...]) -> None:
-    if backend in _LATER_BACKENDS:
-        raise ConfigError(f"backend {backend!r} is not ported yet: it comes "
-                          f"with {_LATER_BACKENDS[backend]}")
-    if backend not in served:
+def _lut_route(backend: str, methods: SearchMethod, max_bits: int,
+               n_rows: int, k: int, codes_br: Optional[int],
+               quantized: bool, on_cuda: bool, has_ivf: bool) -> str:
+    """Which path ``search`` takes: JAX's rule (vaq_tpu/vaq.py:626-800) with
+    ``jax.default_backend() != "cpu"`` read as ``on_cuda``.
+
+    ``k`` is what a LUT path fetches (k + #deleted, at most n, when rows are
+    tombstoned) and ``codes_br`` is ``_codes_block_rows(k)``; ``quantized``
+    means a FAST-family config with learned LUT quantizers; ``has_ivf``
+    that ``attach_ivf`` has built probe state. Returns
+    "decoded", "decoded8", "codes", "ivf", "lut_codes" (the codes tier, K1/K2,
+    serving a "lut" request), "fast4" (``fast4_scan_topk``, K3/K4) or
+    "lut_gather" (``adc_scan_topk``). Raises ConfigError for an unknown
+    backend, and for "fast4" on subspaces of more than 4 bits (the
+    reference's constraint, VAQ.cpp:1263-1266).
+    """
+    if backend not in BACKENDS:
         raise ConfigError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        if has_ivf and methods & SearchMethod.TI:
+            return "ivf"
+        backend = "lut" if quantized else "decoded"
+    if backend in ("decoded", "decoded8", "codes", "ivf"):
+        return backend
+    if backend == "lut" and on_cuda and max_bits <= 8 and codes_br is not None:
+        return "lut_codes"
+    if backend == "fast4":
+        if max_bits > 4:
+            raise ConfigError(
+                "fast4 backend requires max_bits <= 4 (reference constraint, "
+                "VAQ.cpp:1263-1266)")
+        return "fast4"
+    if backend != "lut_gather" and on_cuda and max_bits <= 8 and \
+            n_rows >= 64 * k and (backend == "lut"
+                                  or bool(methods & SearchMethod.FAST)):
+        return "fast4"
+    return "lut_gather"
+
+
+def _fast4_block_rows(n_rows: int, k: int) -> int:
+    """Window size of the FAST scan (vaq_tpu/vaq.py:771-772): the power of 2
+    at or below max(256, min(512, n // (64·k)))."""
+    br = max(256, min(512, n_rows // (64 * k)))
+    return 1 << (br.bit_length() - 1)
+
+
+def _learn_quantization_device(luts: torch.Tensor, valid: torch.Tensor,
+                               counts: torch.Tensor, alphas: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """α-grid LUT-quantization search on the LUTs' device
+    (vaq_tpu/vaq.py:72-121).
+
+    luts (S, M, C) f32 sampled LUTs; valid (M, C) bool, the live centroid
+    entries; counts (M,) int32 live centroids per subspace; alphas (A,) f32.
+    Returns (offsets (A, M), scales (A, M), losses (A,)). One sort per
+    subspace gives every α's offset and ceiling by linearly interpolated
+    quantiles (numpy's rule; ``max(col − off, 0)`` keeps the order, so the
+    ceiling reads the same sorted column); the losses are summed over blocks
+    of 1024 sampled LUTs, zero-padded as in JAX.
+    """
+    s_n, m, c = luts.shape
+    flat = torch.where(valid[None], luts, torch.inf)
+    srt = torch.sort(flat.transpose(0, 1).reshape(m, s_n * c), dim=1).values
+    nval = (counts * s_n).to(torch.float32)                 # (M,)
+
+    def interp(pos):                                        # pos (A, M)
+        lo = torch.floor(pos).to(torch.int32)
+        hi = torch.minimum(lo + 1, (nval[None, :] - 1).to(torch.int32))
+        w = pos - lo
+
+        def gather(idx):
+            return torch.gather(srt, 1, idx.T.to(torch.int64)).T
+
+        return gather(lo), gather(hi), w
+
+    vlo, vhi, w = interp(alphas[:, None] * (nval[None, :] - 1.0))
+    off = vlo * (1.0 - w) + vhi * w                         # (A, M)
+    vlo, vhi, w = interp((1.0 - alphas)[:, None] * (nval[None, :] - 1.0))
+    ceil = (torch.clamp_min(vlo - off, 0.0) * (1.0 - w)
+            + torch.clamp_min(vhi - off, 0.0) * w)
+    scales = 255.0 / torch.clamp_min(ceil, 1e-30)
+
+    pad = (-s_n) % _LUT_LOSS_BLOCK
+    luts_p = torch.nn.functional.pad(torch.where(valid[None], luts, 0.0),
+                                     (0, 0, 0, 0, 0, pad))
+    losses = torch.zeros_like(alphas)
+    for start in range(0, s_n + pad, _LUT_LOSS_BLOCK):
+        lm = luts_p[start:start + _LUT_LOSS_BLOCK]
+        off_l = torch.clamp_min(lm[None] - off[:, None, :, None], 0.0)
+        scaled = off_l * scales[:, None, :, None]
+        q8 = torch.clamp_max(torch.floor(scaled), 255.0)
+        err = (scaled - q8) * valid[None, None]
+        losses = losses + torch.sum(err * err, dim=(1, 2, 3))
+    return off, scales, losses
 
 
 def _encode_blocked(xp: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -125,8 +226,8 @@ class VAQIndex:
     # Cluster-probe (TI) state, set by ivf.attach_ivf.
     ivf: Optional[object] = None
 
-    # LUT u8 quantization: no ported path reads it yet; kept so that an index
-    # saved by the JAX package survives a load/save round trip intact.
+    # LUT u8 quantization (learn_quantization), one (offset, scale) per
+    # subspace; the FAST search quantizes its LUTs with them.
     lut_offsets: Optional[np.ndarray] = None
     lut_scales: Optional[np.ndarray] = None
 
@@ -385,8 +486,16 @@ class VAQIndex:
         """One query batch on the device; results stay there.
 
         queries_dev (nq, padded d) f32 on the index's device. ``backend``:
-        "decoded", "decoded8" or "codes". Returns (sq_dists (nq, k) f32
-        ascending, labels (nq, k) int32)."""
+        "decoded", "decoded8" or "codes"; the LUT backends raise ConfigError
+        here and run through ``search`` (the JAX ``search_device`` serves
+        the decoded tier for them instead, vaq_tpu/vaq.py:486-489). Returns
+        (sq_dists (nq, k) f32 ascending, labels (nq, k) int32)."""
+        if backend not in ("decoded", "decoded8", "codes"):
+            if backend in BACKENDS:
+                raise ConfigError(
+                    f"search_device serves 'decoded', 'decoded8' and "
+                    f"'codes'; backend {backend!r} runs through search()")
+            raise ConfigError(f"unknown backend {backend!r}")
         if backend == "codes":
             self._require_codes_bits()
             br = self._codes_block_rows(k)
@@ -411,7 +520,6 @@ class VAQIndex:
                 top, pos = torch.topk(d, k, dim=1, largest=False, sorted=True)
                 i = torch.gather(i, 1, pos)
                 return top, torch.where(torch.isfinite(top), i, -1)
-        _check_backend(backend, ("decoded", "decoded8"))
         if backend == "decoded8":
             self._ensure_decoded8()
             return scan_decoded.decoded8_scan_topk(
@@ -423,26 +531,42 @@ class VAQIndex:
             self.decoded_norms, k)
 
     def search(self, queries: np.ndarray, k: int, query_batch: int = 512,
-               backend: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
+               block_rows: int = 32768, backend: str = "auto"
+               ) -> Tuple[np.ndarray, np.ndarray]:
         """ADC top-k search for a query batch; host arrays in and out.
 
         Returns (sq_dists (nq, k) f32, labels (nq, k) int32), ascending.
         backend: "decoded" (bf16 reconstruction GEMM), "decoded8" (the int8
         tier), "codes" (only the u8 codes resident, searched by the CUDA
         kernels K1/K2), "ivf" (the cluster probe, kernels K5/K7; needs
-        ``attach_ivf`` first) or "auto", which takes the probe when the
-        config has TI and the probe state exists, else "decoded", as the JAX
-        version does for non-FAST configs (vaq.py:629-690). Tombstones
-        present when the buckets were built never come back from the probe.
+        ``attach_ivf`` first), "fast4" (the FAST window scan, kernel K3, or
+        K4 on the u8-quantized LUTs once ``learn_quantization`` has run; the
+        reference's ≤ 4-bit constraint), "lut_gather" (the LUT gather scan,
+        ``block_rows`` rows at a time), "lut" (the codes tier on the card
+        when enough windows form, else "fast4" on the card, else the gather
+        scan) or "auto" ("ivf" for TI with probe state, "lut" for a
+        quantized FAST-family config, else "decoded"): :func:`_lut_route`,
+        JAX's rule (vaq_tpu/vaq.py:587-819) with JAX's accelerator read as
+        this index's CUDA device. On a quantized FAST-family config the LUT
+        paths use the quantized-then-dequantized tables (FAST3 only on its
+        ≤ 4-bit subspaces), as JAX does. Tombstones present when the probe
+        buckets were built never come back from the probe; the LUT paths
+        over-fetch k + #deleted and drop them on the host.
         """
         cfg = self.config
         if self.eigvecs is None:
             raise NotReadyError("search() requires train() first")
         if self.codes is None:
             raise NotReadyError("search() requires encode() first")
-        _check_backend(backend, ("auto", "decoded", "decoded8", "codes",
-                                 "ivf"))
-        if backend == "ivf" and self.ivf is None:
+        n_del = 0 if self.deleted_ids is None else len(self.deleted_ids)
+        k_lut = min(k + n_del, self.n_rows) if n_del else k
+        quantized = bool(cfg.methods & _FAST_FAMILY) and \
+            self.lut_offsets is not None
+        route = _lut_route(backend, cfg.methods, int(self.bits.max()),
+                           self.n_rows, k_lut, self._codes_block_rows(k_lut),
+                           quantized, self.device.type == "cuda",
+                           self.ivf is not None)
+        if route == "ivf" and self.ivf is None:
             raise NotReadyError(
                 "backend='ivf' requires ivf.attach_ivf(index) first")
         queries = np.asarray(queries, dtype=np.float32)
@@ -454,31 +578,127 @@ class VAQIndex:
                 f"query dim {queries.shape[1]} does not match index dim "
                 f"{self.orig_dim}")
         queries = io.pad_dims(queries, cfg.subspace_num)
-        if backend == "auto" and self.ivf is not None and \
-                cfg.methods & SearchMethod.TI:
-            backend = "ivf"
-        if backend == "auto":
-            fast = cfg.methods & (SearchMethod.FAST | SearchMethod.FAST2
-                                  | SearchMethod.FAST3)
-            if fast and self.lut_offsets is not None:
-                raise ConfigError(
-                    "quantized-LUT (FAST) search is not ported yet: it comes "
-                    f"with {_LATER_BACKENDS['lut']}")
-            backend = "decoded"
+        k_run = k_lut if route in LUT_ROUTES else k
         nq = queries.shape[0]
-        all_d = np.empty((nq, k), dtype=np.float32)
-        all_i = np.empty((nq, k), dtype=np.int32)
+        all_d = np.empty((nq, k_run), dtype=np.float32)
+        all_i = np.empty((nq, k_run), dtype=np.int32)
         for start in range(0, nq, query_batch):
             qb = torch.as_tensor(queries[start:start + query_batch],
                                  device=self.device)
-            if backend == "ivf":
+            if route == "ivf":
                 d, i = self.ivf.search(
                     self, pca.project(qb, self._eigvecs_device()), k)
+            elif route in LUT_ROUTES:
+                d, i = self._lut_search(qb, k_run, route, quantized,
+                                        block_rows)
             else:
-                d, i = self.search_device(qb, k, backend=backend)
+                d, i = self.search_device(qb, k, backend=route)
             all_d[start:start + qb.shape[0]] = d.cpu().numpy()
             all_i[start:start + qb.shape[0]] = i.cpu().numpy()
+        if k_run > k:
+            return self._drop_tombstones(all_d, all_i, k)
         return all_d, all_i
+
+    def _search_luts(self, qp: torch.Tensor, quantized: bool
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(f32 LUTs the LUT paths sum, u8 LUTs for K4 or None) of a
+        projected query batch (vaq_tpu/vaq.py:728-750). Quantized: the
+        tables go through u8 and back, so the search sees the quantization
+        error the reference's shuffle scan sees; FAST3 applies it only to
+        its ≤ 4-bit subspaces and keeps f32 winner selection, other FAST
+        configs select on the raw u8 sums."""
+        luts = scan_lut.build_luts(
+            qp, torch.as_tensor(self.centroids, device=self.device))
+        if not quantized:
+            return luts, None
+        off = torch.tensor(self.lut_offsets, dtype=torch.float32,
+                           device=self.device)
+        scales = torch.tensor(self.lut_scales, dtype=torch.float32,
+                              device=self.device)
+        lut8 = scan_lut.quantize_luts(luts, off, scales)
+        deq = (lut8.to(torch.float32) / scales[None, :, None]
+               + off[None, :, None])
+        if self.config.methods & SearchMethod.FAST3:
+            shuf = torch.as_tensor(self.bits <= 4, device=self.device)
+            return torch.where(shuf[None, :, None], deq, luts), None
+        return deq, lut8
+
+    def _lut_search(self, qb: torch.Tensor, k: int, route: str,
+                    quantized: bool, block_rows: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One query batch down a LUT route of :func:`_lut_route`."""
+        qp = pca.project(qb, self._eigvecs_device())
+        if route == "lut_codes":
+            dec_table, dec_rows = self._codes_tier()
+            return scan_codes.decode_scan_topk(
+                self.codes, dec_table, dec_rows, qp, k,
+                block_rows=self._codes_block_rows(k))
+        luts, lut8 = self._search_luts(qp, quantized)
+        if route == "lut_gather":
+            return scan_lut.adc_scan_topk(self.codes, luts, k,
+                                          block_rows=block_rows)
+        padc = 16 - luts.shape[2]
+        if padc > 0:
+            # max_bits < 4: pad the tables to C = 16 with zeros, never inf
+            # (JAX's one-hot matmul turned 0·inf into NaN); codes stay
+            # < 2^bits, so the padded entries are never read
+            luts = torch.nn.functional.pad(luts, (0, padc))
+            if lut8 is not None:
+                lut8 = torch.nn.functional.pad(lut8, (0, padc))
+        return scan_codes.fast4_scan_topk(
+            self.codes, luts, k,
+            block_rows=_fast4_block_rows(self.n_rows, k), luts8=lut8)
+
+    def _drop_tombstones(self, all_d: np.ndarray, all_i: np.ndarray, k: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Strip tombstoned ids from an over-fetched result and keep the
+        first k survivors of each row (vaq_tpu/vaq.py:807-818): a stable
+        argsort on the dead mask moves the live entries to the front in
+        their order."""
+        dead = np.isin(all_i, self.deleted_ids)
+        order = np.argsort(dead, axis=1, kind="stable")
+        d_s = np.take_along_axis(all_d, order, axis=1)[:, :k]
+        i_s = np.take_along_axis(all_i, order, axis=1)[:, :k]
+        n_live = all_i.shape[1] - dead.sum(axis=1)
+        valid = np.arange(k)[None, :] < n_live[:, None]
+        return (np.where(valid, d_s, np.inf).astype(np.float32),
+                np.where(valid, i_s, -1).astype(np.int32))
+
+    # ------------------------------------------------------------------
+    # LUT quantization (V16)
+    # ------------------------------------------------------------------
+    def learn_quantization(self, x_train: np.ndarray,
+                           sample_ratio: float = 0.1) -> "VAQIndex":
+        """Learn the per-subspace u8 LUT offset and scale by the α-grid
+        search (reference VAQ.cpp:1118-1187; vaq_tpu/vaq.py:543-582), on the
+        index's device: LUTs of a seeded sample of ``sample_ratio`` of the
+        rows (at most 65,536), padded centroid entries masked out; the last
+        α whose loss is at or below the minimum wins, as in the reference.
+        """
+        if self.centroids is None:
+            raise NotReadyError("learn_quantization() requires train() first")
+        cfg = self.config
+        dev = self.device
+        x_train = io.pad_dims(np.asarray(x_train, dtype=np.float32),
+                              cfg.subspace_num)
+        sample_n = min(max(1, int(sample_ratio * x_train.shape[0])),
+                       LUT_SAMPLE_CAP)
+        qs = rng.sample_rows(x_train, sample_n, cfg.seed)
+        qp = pca.project(torch.as_tensor(qs, device=dev),
+                         self._eigvecs_device())
+        luts = scan_lut.build_luts(
+            qp, torch.as_tensor(self.centroids, device=dev))
+        valid = torch.as_tensor(np.arange(self.max_centroids)[None, :]
+                                < self.centroid_counts[:, None], device=dev)
+        offs, scales, losses = _learn_quantization_device(
+            luts, valid,
+            torch.as_tensor(self.centroid_counts.astype(np.int32), device=dev),
+            torch.tensor(LUT_ALPHAS, dtype=torch.float32, device=dev))
+        losses = losses.cpu().numpy()
+        best = int(np.flatnonzero(losses <= losses.min())[-1])
+        self.lut_offsets = offs[best].cpu().numpy()
+        self.lut_scales = scales[best].cpu().numpy()
+        return self
 
     # ------------------------------------------------------------------
     # Refine
