@@ -15,8 +15,12 @@ as it goes:
    paths' shapes, timed with CUDA events after a warm-up, beside its bound
    (bytes over 3.35 TB/s or operations over the peak rate of their type,
    the larger) and one PyTorch call doing its dominant product where there
-   is one: K1/K2 at n = 1M codes, M = 32, C = 256, d = 128, 512 queries,
-   128-row windows, the rescore at 512 × 200 candidates; K5 over the 1M
+   is one: K1 at n = 1M codes and 512 queries, at M = 32, C = 256, d = 128
+   with 128-row and with 64-row windows and at the FAST "auto" shape
+   (M = 64, C = 16, L = 2), with its TFLOP/s and share of the bound; the
+   tie-exact top-k helper's two forms beside ``torch.topk`` on K1's window
+   scores; K2 at the same codes, the rescore at 512 × 200 candidates; K5
+   over the 1M
    probe buckets (1000 clusters of 1536 rows, 112 query slots, gs = 8) with
    int8 rows, at d = 96 (the shape of JAX's transposed K6) and with bf16
    rows; K7 at 512 queries × 200 windows of 8 rows, int8 and bf16, d = 128
@@ -29,7 +33,8 @@ as it goes:
    ``VAQ256m32min7max8var1,HEAP`` on seeded synthetic data: train, encode,
    search on the decoded and on the codes tier (k = 100), then search 200
    and refine to 100, with times, QPS, peak device memory and recall against
-   exact groundtruth; K1/K2's launch counters are zeroed just before it and
+   exact groundtruth, and a ``torch.profiler`` split of one 512-query codes
+   batch by kernel; K1/K2's launch counters are zeroed just before it and
    must have moved just after;
 5. the TI/IVF path on the same index: ``attach_ivf`` with 1000 clusters
    over 16 subspaces (``bench.py:642-643``), searches at visit 0.25, 0.10,
@@ -73,10 +78,15 @@ METHOD = "VAQ256m32min7max8var1,HEAP"
 # Kernel check at the main path's shapes.
 KC_N, KC_M, KC_C, KC_L, KC_NQ, KC_BR, KC_KK = 1_000_000, 32, 256, 4, 512, 128, 200
 RTOL_KERNEL = 1e-5   # f32 sums in another order: last-bit differences
-# K1's scores keep only the high 23 − idx_bits mantissa bits (the low ones
-# hold the row index), so two last-bit-different sums can land one step of
-# 2^(idx_bits − 23), relative, apart: 1.5e-5 at 128-row windows.
-RTOL_K1_SCORES = RTOL_KERNEL + 2.0 ** ((KC_BR - 1).bit_length() - 23)
+# K1 at the codes path's shape, at the FAST "auto" shape (M = 64, C = 16,
+# L = 2) and at 64-row windows (the codes tier at k = 200), each as
+# (n, M, C, L, nq, block_rows). Its scores keep only the high 23 − idx_bits
+# mantissa bits (the low ones hold the row index), so two last-bit-different
+# sums can land one step of 2^(idx_bits − 23), relative, apart: 1.5e-5 at
+# 128-row windows.
+K1_SHAPES = ((KC_N, KC_M, KC_C, KC_L, KC_NQ, KC_BR),
+             (KC_N, 64, 16, 2, KC_NQ, KC_BR),
+             (KC_N, KC_M, KC_C, KC_L, KC_NQ, 64))
 N_CMP, NQ_CMP, K_CMP = 20_000, 200, 10
 DEVICE = "cuda"
 # The probe buckets of the 1M index (attach_ivf at 1000 clusters: capacity
@@ -348,62 +358,123 @@ def _check_fast4(rng, shape, int8: bool) -> dict:
                   0.0, ms, plain, bound, library)
 
 
+def _k1_winners_tie(codes, table, qp, q_idx, ids_a, ids_b, rtol) -> bool:
+    """Whether rows ``ids_a`` and ``ids_b`` of queries ``q_idx`` score the
+    same to ``rtol`` in f64 by K1's own formula (bf16 decode, bf16 query in
+    the dot, f32 query in ‖q‖²)."""
+    c, d = table.shape
+    m = codes.shape[1]
+    q64 = qp.to(torch.bfloat16).double()[q_idx]
+    qn = (qp * qp).sum(1).double()[q_idx]
+    tbl = table.double().reshape(c, m, d // m)
+    sub = torch.arange(m, device=codes.device)
+
+    def score(ids):
+        x = tbl[codes[ids.long()].long(), sub].reshape(-1, d)
+        return (x * x).sum(1) - 2 * (x * q64).sum(1) + qn
+
+    a, b = score(ids_a), score(ids_b)
+    return bool(torch.all((a - b).abs() <= rtol * b.abs() + 1e-5))
+
+
+def _check_k1(rng, shape) -> tuple[dict, torch.Tensor]:
+    """K1 against its plain version at one 1M shape (n, M, C, L, nq,
+    block_rows): scores within 1e-5 + 2^(idx_bits − 23) relative, and ids
+    differing only where the two rows tie to that in f64 (the tensor cores
+    sum the dot in another order, and the key keeps 23 − idx_bits mantissa
+    bits). The library yardstick is one bf16 GEMM of the queries against
+    the decoded rows (decoded outside the timing). Returns the entry and
+    the window scores."""
+    from vaq_tpu_torch.ops import scan_codes
+    dev = torch.device(DEVICE)
+    n, m, c, l, nq, br = shape
+    d = m * l
+    cents = rng.standard_normal((m, c, l)).astype(np.float32)
+    codes = torch.as_tensor(rng.integers(0, c, (n, m), dtype=np.uint8), device=dev)
+    qp = torch.as_tensor(rng.standard_normal((nq, d)).astype(np.float32), device=dev)
+    table = scan_codes.build_decode_table(cents, dev)
+    rtol = RTOL_KERNEL + 2.0 ** ((br - 1).bit_length() - 23)
+    s_k, i_k = scan_codes.decode_window_scan(codes, table, qp, br)
+    s_r, i_r = scan_codes.decode_window_scan_ref(codes, table, qp, br)
+    torch.cuda.synchronize()
+    assert s_k.shape == (nq, -(-n // br)) and torch.isfinite(s_k).all(), shape
+    torch.testing.assert_close(s_k, s_r, rtol=rtol, atol=1e-5)
+    diff = (i_k != i_r).nonzero()
+    if len(diff):
+        assert _k1_winners_tie(codes, table, qp, diff[:, 0],
+                               i_k[diff[:, 0], diff[:, 1]],
+                               i_r[diff[:, 0], diff[:, 1]], rtol), \
+            f"K1 winners differ beyond a tie at {shape}"
+    err = float((s_k - s_r).abs().max())
+    ms = _time_ms(lambda: scan_codes.decode_window_scan(codes, table, qp, br), 20)
+    plain = _time_ms(lambda: scan_codes.decode_window_scan_ref(codes, table, qp, br), 3)
+    dec = table.view(c, m, l)[codes.long(), torch.arange(m, device=dev)]
+    dec_t = dec.reshape(n, d).T
+    q_bf = qp.to(torch.bfloat16)
+    library = _time_ms(lambda: torch.matmul(q_bf, dec_t), 10)
+    del dec, dec_t
+    ops = 2.0 * nq * n * d
+    bound = _bound(n * m + table.numel() * 2 + qp.numel() * 4 + s_k.numel() * 4,
+                   ops, "bf16")
+    log(f"[kernels] K1 decode_window_scan n={n} M={m} C={c} L={l} nq={nq} br={br}: "
+        f"max|Δscore| {err:.3g}, {len(diff)} id ties of {i_k.numel()}, kernel "
+        f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s, {100 * bound[0] / ms:.1f}% "
+        f"of the bound), plain {plain:.3f} ms, bf16 matmul {library:.3f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]})")
+    name = "decode_window_scan" + ("" if c == KC_C else f"_c{c}") + \
+        ("" if br == KC_BR else f"_br{br}")
+    return _entry(name, "vaq_tpu_torch/csrc/decode_window_scan.cu",
+                  "vaq_tpu/ops/scan_pallas.py:283", err, ms, plain, bound,
+                  library), s_k
+
+
+def _time_selection(scores: torch.Tensor, k: int) -> None:
+    """The tie-exact selection (``scan_codes._select_lowest``) in both its
+    forms beside ``torch.topk`` on one (nq, width) score matrix; the two
+    forms must agree."""
+    from vaq_tpu_torch.ops import scan_codes
+    keep = scan_codes._SORT_WIDTH
+    times = {}
+    outs = {}
+    try:
+        for form, width in (("stable sort", 1 << 62), ("topk of (score, position)", 0)):
+            scan_codes._SORT_WIDTH = width
+            outs[form] = scan_codes._select_lowest(scores, k)
+            times[form] = _time_ms(lambda: scan_codes._select_lowest(scores, k), 20)
+    finally:
+        scan_codes._SORT_WIDTH = keep
+    a, b = outs.values()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), "the forms differ"
+    times["torch.topk"] = _time_ms(
+        lambda: torch.topk(scores, k, dim=1, largest=False, sorted=True), 20)
+    log(f"[kernels] select lowest {k} of {tuple(scores.shape)}: "
+        + ", ".join(f"{f} {t:.4f} ms" for f, t in times.items())
+        + f"; the helper sorts up to width {keep}")
+
+
 def phase_kernels() -> list[dict]:
     """Every kernel against its plain version on the card."""
     from vaq_tpu_torch.ops import scan_codes
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
+    kernels = []
+    for shape in K1_SHAPES:
+        entry, scores = _check_k1(rng, shape)
+        kernels.append(entry)
+        if shape == K1_SHAPES[0]:
+            # the codes tier's window pick (top-2k of 7813 windows at
+            # k = 100) and the LUT gather scan's merge width (k + 32768)
+            _time_selection(scores, 2 * 100)
+            _time_selection(torch.cat([scores] * 5, dim=1)[:, :32868], 100)
+        del scores
+        torch.cuda.empty_cache()
     d = KC_M * KC_L
     cents = rng.standard_normal((KC_M, KC_C, KC_L)).astype(np.float32)
     codes = torch.as_tensor(rng.integers(0, KC_C, (KC_N, KC_M), dtype=np.uint8),
                             device=dev)
     qp = torch.as_tensor(rng.standard_normal((KC_NQ, d)).astype(np.float32),
                          device=dev)
-    table = scan_codes.build_decode_table(cents, dev)
     rows = scan_codes.build_decode_rows(cents, dev)
-
-    # K1
-    s_k, i_k = scan_codes.decode_window_scan(codes, table, qp, KC_BR)
-    s_r, i_r = scan_codes.decode_window_scan_ref(codes, table, qp, KC_BR)
-    torch.cuda.synchronize()
-    assert s_k.shape == (KC_NQ, -(-KC_N // KC_BR)) and torch.isfinite(s_k).all()
-    torch.testing.assert_close(s_k, s_r, rtol=RTOL_K1_SCORES, atol=1e-5)
-    diff = (i_k != i_r).nonzero()
-    if len(diff):
-        # ids may differ only where the two rows tie to within one packed-key
-        # step (the kernel and the plain version sum in different orders,
-        # and the key keeps 23 − idx_bits mantissa bits): score both rows in
-        # f64 with the kernel's own formula
-        q64 = qp.to(torch.bfloat16).double()
-        qn = (qp * qp).sum(1).double()
-        tbl = table.double().reshape(KC_C, KC_M, KC_L)
-        sub = torch.arange(KC_M, device=dev)
-
-        def score(ids):
-            x = tbl[codes[ids[:, 1].long()].long(), sub].reshape(-1, d)
-            return (x * x).sum(1) - 2 * (x * q64[ids[:, 0]]).sum(1) + qn[ids[:, 0]]
-
-        a = score(torch.stack([diff[:, 0], i_k[diff[:, 0], diff[:, 1]]], 1))
-        b = score(torch.stack([diff[:, 0], i_r[diff[:, 0], diff[:, 1]]], 1))
-        assert torch.all((a - b).abs() <= RTOL_K1_SCORES * b.abs() + 1e-5), \
-            "K1 winners differ beyond a tie"
-    k1_err = float((s_k - s_r).abs().max())
-    k1_ms = _time_ms(lambda: scan_codes.decode_window_scan(codes, table, qp, KC_BR), 10)
-    k1_plain = _time_ms(
-        lambda: scan_codes.decode_window_scan_ref(codes, table, qp, KC_BR), 3)
-    # the library yardstick: one bf16 GEMM of the queries against the
-    # decoded rows (decoded outside the timing)
-    dec = table.view(KC_C, KC_M, KC_L)[codes.long(), torch.arange(KC_M, device=dev)]
-    dec_t = dec.reshape(KC_N, d).T
-    q_bf = qp.to(torch.bfloat16)
-    k1_lib = _time_ms(lambda: torch.matmul(q_bf, dec_t), 10)
-    del dec, dec_t
-    k1_bound = _bound(KC_N * KC_M + table.numel() * 2 + qp.numel() * 4
-                      + s_k.numel() * 4, 2.0 * KC_NQ * KC_N * d, "bf16")
-    log(f"[kernels] K1 decode_window_scan: max|Δscore| {k1_err:.3g}, "
-        f"{len(diff)} id ties of {i_k.numel()}, kernel {k1_ms:.3f} ms, "
-        f"plain {k1_plain:.3f} ms, bf16 matmul {k1_lib:.3f} ms, bound "
-        f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
 
     # K2
     cand = torch.as_tensor(rng.integers(0, KC_N, (KC_NQ, KC_KK), dtype=np.int32),
@@ -423,14 +494,10 @@ def phase_kernels() -> list[dict]:
     log(f"[kernels] K2 decode_rescore: max|Δ| {k2_err:.3g}, kernel {k2_ms:.3f} ms, "
         f"plain {k2_plain:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     del codes, cand
-    kernels = [
-        _entry("decode_window_scan", "vaq_tpu_torch/csrc/decode_window_scan.cu",
-               "vaq_tpu/ops/scan_pallas.py:283", k1_err, k1_ms, k1_plain,
-               k1_bound, k1_lib),
+    kernels.append(
         _entry("decode_rescore", "vaq_tpu_torch/csrc/decode_rescore.cu",
                "vaq_tpu/ops/scan_pallas.py:477", k2_err, k2_ms, k2_plain,
-               k2_bound, None),
-    ]
+               k2_bound, None))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
         kernels.append(_check_groupmin(gen, d_k, dtype))
@@ -457,6 +524,26 @@ def _step(name: str, fn, nq: int | None = None, tag: str = "main"):
     qps = f", {nq / dt:.0f} QPS" if nq else ""
     log(f"[{tag}] {name}: {dt:.3f} s{qps}, peak {mem:.0f} MiB")
     return out
+
+
+def _profile_batch(tag: str, what: str, fn) -> None:
+    """One call of ``fn`` (a 512-query search) under ``torch.profiler``:
+    its wall time, the device's busy time and share, and the device time by
+    kernel."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == cuda) / 1e3
+    log(f"[{tag}] {what}, one 512-query batch: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}%); top device ops:\n"
+        + prof.key_averages().table(sort_by="self_device_time_total", row_limit=10))
 
 
 def phase_main_path() -> tuple[dict, dict]:
@@ -496,6 +583,8 @@ def phase_main_path() -> tuple[dict, dict]:
     launches = {"decode_window_scan": scan_codes.decode_window_scan.launches,
                 "decode_rescore": scan_codes.decode_rescore.launches}
     log(f"[main] kernel launches during the main path: {launches}")
+    _profile_batch("main", "codes", lambda: idx.search(queries[:512], 100,
+                                                     backend="codes"))
 
     r_dec = metrics.avg_recall(l_dec, gt, 100)
     r_cod = metrics.avg_recall(l_cod, gt, 100)
@@ -673,6 +762,8 @@ def phase_fast_path(ctx: dict) -> dict:
         f"K3/K4 {counts}")
     assert scan_codes.decode_window_scan.launches > 0, "auto did not run K1"
     assert counts == {"K3": 0, "K4": 0}, counts
+    _profile_batch("fast", "auto (codes tier)",
+                   lambda: idx.search(queries[:512], 100))
 
     counts.update(K3=0, K4=0)
     _, cand = _fast_search(idx, queries, gt, "fast4 k=200 (K4)", k=200,

@@ -81,14 +81,30 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("geom", GEOMETRIES + [
-    (32, 256, 4, 100_000, 128),   # windows span two 64-row tiles
+# (M, C, L, n, block_rows, nq, duplicate rows) for K1
+K1_CASES = [g + (70, False) for g in GEOMETRIES + [
+    (32, 256, 4, 100_000, 128),   # the main shape's windows, cut in rows
     (8, 16, 4, 1000, 24),         # ragged n, windows not tile-aligned
-    (512, 4, 1, 2000, 1),         # > 48 KB shared memory, one-row windows
-])
+    (512, 4, 1, 2000, 1),         # d = 512 in depth slices, one-row windows
+]] + [
+    (6, 16, 5, 3000, 64, 70, False),       # d = 30: not a multiple of 16
+    (64, 16, 2, 100_000, 128, 70, False),  # the FAST "auto" shape, C = 16
+    (32, 256, 4, 50_000, 64, 130, False),  # 64-row windows, two sub-tiles
+    (32, 256, 4, 50_000, 512, 70, False),  # windows span four tiles
+    (32, 256, 4, 20_000, 128, 488, False),  # a ragged last query sub-tile
+    (32, 256, 4, 10_000, 128, 600, False),  # two query chunks
+    (128, 16, 4, 3000, 16, 40, False),     # d = 512 at 16-row windows
+    (8, 16, 4, 4096, 64, 70, True),        # duplicate rows: windows tie
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", K1_CASES)
 def test_decode_window_scan_kernel_matches_plain(cuda, geom):
-    cents, codes, qp = make_inputs(geom, nq=70)
+    *geom, nq, dup = geom
+    cents, codes, qp = make_inputs(geom, nq=nq)
+    if dup:  # every row one of 16: many rows of a window tie exactly
+        codes = codes[np.random.default_rng(3).integers(0, 16, len(codes))]
     br = geom[4]
     table = scan_codes.build_decode_table(cents, cuda)
     c, q = torch.as_tensor(codes, device=cuda), torch.as_tensor(qp, device=cuda)

@@ -167,6 +167,25 @@ def test_wrappers_check_inputs_and_count_only_launches():
                                       q.to(meta), 16)
 
 
+def test_k1_tile_fits_the_shared_memory():
+    """K1's block geometry: as few query chunks as fit, each of equal runs
+    of whole 128-query sub-tiles; the decode table in shared memory where
+    that costs no extra chunk (C = 256 at 130 queries, not at 512, which
+    stay one chunk and read the table from global memory); the depth sliced,
+    and the table read from global memory, only where one sub-tile at the
+    whole depth does not fit."""
+    tile = scan_codes._k1_tile
+    assert tile(512, 32, 256, 128) == (512, 128, False, 221696)
+    assert tile(130, 32, 256, 128)[:3] == (256, 128, True)
+    assert tile(600, 32, 256, 128)[:3] == (384, 128, False)    # 2 chunks
+    assert tile(2000, 24, 256, 96)[:3] == (512, 96, True)      # 4 chunks
+    assert tile(70, 6, 16, 30)[:3] == (128, 32, True)          # d → 32
+    assert tile(70, 512, 4, 512)[:3] == (128, 80, False)       # sliced
+    for args in ((512, 32, 256, 128), (70, 512, 4, 512), (40, 128, 16, 512),
+                 (600, 24, 256, 96)):
+        assert tile(*args)[3] <= scan_codes._SMEM_LIMIT
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No nvcc: a clear build error, never a silent fallback."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

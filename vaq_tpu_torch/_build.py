@@ -31,10 +31,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never cuts a 64-bit address to an int).
 _SIGNATURES = {
-    # codes, n_rows, m, table, q, qn, nq, d, block_rows, idx_bits, n_win,
-    # keys, stream
-    "vaq_decode_window_scan": (_P, _L, _I, _P, _P, _P, _I, _I, _I, _I, _L,
-                               _P, _P),
+    # codes, n_rows, m, c, table, q, qn, nq, d, block_rows, idx_bits, n_win,
+    # q_chunk, kc, table_smem, smem, keys, stream
+    "vaq_decode_window_scan": (_P, _L, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                               _L, _I, _I, _I, _I, _P, _P),
     # codes, n_rows, m, cand, nq, kk, rows, qp, d, out, stream
     "vaq_decode_rescore": (_P, _L, _I, _P, _I, _I, _P, _P, _I, _P, _P),
     # qsl, rows, rows_int8, w, n_slots, ncl, cap, qcap, d, gs, out, stream

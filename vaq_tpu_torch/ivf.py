@@ -16,7 +16,8 @@ runs as
   queries) pair (K5, ``ops/probe_scan.py``) → per-query top-m windows →
   gather-rescore of those windows' rows (K7, ``ops/rescore.py``) → top-k,
   then, when the decoded tier is resident, an exact second-stage rescore of
-  the top 2k against it.
+  the top 2k against it. Every selection breaks ties toward the lower
+  position, as ``jax.lax.top_k`` does (``scan_codes._select_lowest``).
 
 The buckets are int8 by default (the decoded8 tier's per-dim scales, folded
 into the query) or bf16, row-major ``(ncl, cap, D)`` at every D: the JAX
@@ -43,6 +44,7 @@ from vaq_tpu_torch.ops import probe as probe_ops
 from vaq_tpu_torch.ops.probe_scan import (groupmin_window_scan, pick_gs,
                                           poison_pattern)
 from vaq_tpu_torch.ops.rescore import gather_rescore
+from vaq_tpu_torch.ops.scan_codes import _select_lowest
 from vaq_tpu_torch.ops.scan_decoded import int8_dim_scales, quantize_int8
 
 # Rows per block of the top-S cluster candidates (bounds its (rows, ncl)
@@ -141,9 +143,8 @@ def build_ivf(index, verbose: bool = False,
         # distance matrix never exists whole
         s_cand = min(8, ncl)
         cand = np.concatenate([
-            torch.topk(probe_ops.cluster_sq_dists(
-                prefix[s:s + _BLOCK_ROWS], cents), s_cand, dim=1,
-                largest=False, sorted=True).indices.cpu().numpy()
+            _select_lowest(probe_ops.cluster_sq_dists(
+                prefix[s:s + _BLOCK_ROWS], cents), s_cand)[1].cpu().numpy()
             for s in range(0, n, _BLOCK_ROWS)])
         assign = _fill_capacity(cand, ncl, cap)
     del prefix
@@ -305,7 +306,7 @@ def probe_scan(
         cand = torch.where(ok[:, None], flat[ent], torch.inf)
         cand = cand.view(nq, p_max * ng)
         m = min(max(2 * k, 16), p_max * ng)
-        wd, pos = torch.topk(cand, m, dim=1, largest=False, sorted=True)
+        wd, pos = _select_lowest(cand, m)
         w_ok = torch.isfinite(wd)                          # dispatched + live
         clus = torch.gather(probe, 1, (pos // ng).to(torch.int64))
         wblk = (clus * ng + (pos % ng)).to(torch.int32)    # (nq, m) windows
@@ -318,7 +319,9 @@ def probe_scan(
         score = score.view(nq, m * gs)
         rows = blk_ids.view(nq, m * gs)
         kk = min(k if rescore_rows is None else 2 * k, m * gs)
-        top_s, post = torch.topk(score, kk, dim=1, largest=True, sorted=True)
+        # the largest scores, ties to the lower position: JAX's top_k
+        neg, post = _select_lowest(-score, kk)
+        top_s = -neg
         top_i = torch.gather(rows, 1, post)
     qn = torch.sum(qp * qp, dim=1)
     if rescore_rows is not None:
@@ -331,9 +334,10 @@ def probe_scan(
             inner2 = torch.bmm(rr, qb[:, :, None])[:, :, 0]
             score2 = 2.0 * inner2 - rescore_norms[safe]
             kk2 = min(k, kk)
-            top_s, post2 = torch.topk(
-                torch.where(torch.isfinite(top_s) & (top_i >= 0), score2,
-                            -torch.inf), kk2, dim=1, largest=True, sorted=True)
+            neg, post2 = _select_lowest(
+                torch.where(torch.isfinite(top_s) & (top_i >= 0), -score2,
+                            torch.inf), kk2)
+            top_s = -neg
             top_i = torch.gather(top_i, 1, post2)
             kk = kk2
     if kk < k:

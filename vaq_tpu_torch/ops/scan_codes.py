@@ -11,12 +11,12 @@ transposed (M, n) layout existed only for its u8 tile. The decode search is
 1. **K1** ``decode_window_scan`` (``csrc/decode_window_scan.cu``): for each
    (query, window of ``block_rows`` rows) the best row by
    ``‖x̂‖² − 2·q·x̂ + ‖q‖²`` over the bf16-rounded decode, as one packed key;
-2. an exact ``torch.topk`` over the windows (the JAX version's
-   ``approx_max_k`` on the TPU, exact ``top_k`` in its interpret mode), with
-   a 2k over-fetch;
+2. an exact top-2k of the windows by :func:`_select_lowest` (the JAX
+   version's ``approx_max_k`` on the TPU, exact ``top_k`` in its interpret
+   mode), ties to the lower window;
 3. **K2** ``decode_rescore`` (``csrc/decode_rescore.cu``): exact f32
    ``‖q − x̂‖²`` of the winners from the f32 decode rows;
-4. a top-k of those.
+4. a top-k of those, by the same helper.
 
 The FAST search (``backend="fast4"``) is
 
@@ -62,6 +62,19 @@ _FAST4_LUT_BYTES = 64 * 1024
 _FAST4_MAX_Q_TILE = 32
 _FAST4_QJ = 8
 _SMEM_LIMIT = 232448
+# K1 geometry (csrc/decode_window_scan.cu): rows per tile, queries per
+# sub-tile (a block stages a chunk of whole sub-tiles), bf16 of padding after
+# each staged row, and the most queries a chunk holds.
+_K1_ROWS = 128
+_K1_Q_TILE = 128
+_K1_PAD = 8
+_K1_MAX_Q_CHUNK = 512
+# _select_lowest sorts rows up to this width whole; wider rows take one
+# torch.topk of (score, position) keys, the faster form on an H100 at the
+# codes tier's window pick (512 × 7813, k = 200: 0.366 ms against the
+# sort's 0.426) and at the gather scan's merge (512 × 32,868: 1.13 against
+# 1.64), as chip_smoke.py times them.
+_SORT_WIDTH = 2048
 # Centroid magnitudes at or above this are sentinels, zeroed in the tables
 # (scan_pallas.py:461,555). vaq.PAD_SENTINEL (1e18) stays below it, as in the
 # JAX tables; codes never address padded rows either way.
@@ -160,6 +173,50 @@ def decode_window_scan_ref(codes: torch.Tensor, table: torch.Tensor,
     return _unpack(keys, block_rows)
 
 
+def _k1_tile(nq: int, m: int, c: int, d: int) -> Tuple[int, int, bool, int]:
+    """(queries a K1 block stages, the depth it stages at once, whether the
+    decode table sits in shared memory, the block's dynamic shared memory in
+    bytes). A block holds two decoded 128-row tiles (one being filled while
+    the other is multiplied), two tiles' codes, the tiles' row norms, the
+    query chunk as bf16 rows of that depth plus 8 of padding with its ‖q‖²,
+    and the decode table where that costs no extra chunk (each chunk decodes
+    every tile again). The chunk is whole 128-query sub-tiles, as many as
+    fit up to ``_K1_MAX_Q_CHUNK``, the batch split into equal chunks: 512
+    queries at C = 256, d = 128 are one chunk, the 64 KB table then read
+    from global memory, which an H100 ran faster than two chunks beside the
+    table. Where not even one sub-tile fits at the
+    whole depth (d = 512 at M = 512), the chunk is one sub-tile, the table
+    is read from global memory, the depth goes in the largest slices of 16
+    that fit, and the query slices are double-buffered too."""
+    dpad = -(-d // 16) * 16
+    # norms, the row-warp pairs' window minima, two tiles' codes
+    small = 12 * _K1_ROWS + 1024 + 2 * _K1_ROWS * m
+    per_q = 2 * (dpad + _K1_PAD) + 4         # one staged query and its ‖q‖²
+    table = 2 * (-(-c * d // 8) * 8)
+    want = -(-max(nq, 1) // _K1_Q_TILE)
+    cap = _K1_MAX_Q_CHUNK // _K1_Q_TILE
+    best = None
+    for in_smem in (True, False):
+        fixed = small + 4 * _K1_ROWS * (dpad + _K1_PAD) + \
+            (table if in_smem else 0)
+        fits = min((_SMEM_LIMIT - fixed) // (_K1_Q_TILE * per_q), cap)
+        if fits >= 1:
+            chunks = -(-want // fits)
+            q_chunk = _K1_Q_TILE * -(-want // chunks)      # equal chunks
+            if best is None or chunks < best[0]:
+                best = (chunks, (q_chunk, dpad, in_smem,
+                                 fixed + q_chunk * per_q))
+    if best is not None:
+        return best[1]
+    rows = 2 * (_K1_ROWS + _K1_Q_TILE)
+    fixed = small + 4 * _K1_Q_TILE
+    kc = ((_SMEM_LIMIT - fixed) // (2 * rows) - _K1_PAD) // 16 * 16
+    if kc < 16:
+        raise ValueError(f"K1: M = {m}, d = {d} do not fit one block's "
+                         "shared memory")
+    return _K1_Q_TILE, kc, False, fixed + rows * 2 * (kc + _K1_PAD)
+
+
 def decode_window_scan(codes: torch.Tensor, table: torch.Tensor,
                        qp: torch.Tensor, block_rows: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -182,17 +239,21 @@ def decode_window_scan(codes: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"decode_window_scan runs on cpu or cuda, not {dev}")
     nq = qp.shape[0]
     n_win = -(-n // block_rows)
+    q_chunk, kc, table_smem, smem = _k1_tile(nq, m, table.shape[0], d)
     q_bf = qp.to(torch.bfloat16).contiguous()
     qn = torch.sum(qp * qp, dim=1).contiguous()
     keys = torch.full((nq, n_win), _INT32_MAX, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        lib = _build.library()
-        err = lib.vaq_decode_window_scan(
-            codes.data_ptr(), n, m, table.data_ptr(), q_bf.data_ptr(),
-            qn.data_ptr(), nq, d, block_rows, _idx_bits(block_rows), n_win,
-            keys.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(err, "decode_window_scan")
-    decode_window_scan.launches += 1
+    if nq and n_win:
+        with torch.cuda.device(dev):
+            lib = _build.library()
+            err = lib.vaq_decode_window_scan(
+                codes.data_ptr(), n, m, table.shape[0], table.data_ptr(),
+                q_bf.data_ptr(), qn.data_ptr(), nq, d, block_rows,
+                _idx_bits(block_rows), n_win, q_chunk, kc, int(table_smem),
+                smem, keys.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check_launch(err, "decode_window_scan")
+        decode_window_scan.launches += 1
     return _unpack(keys, block_rows)
 
 
@@ -265,14 +326,14 @@ def decode_scan_topk(codes: torch.Tensor, table: torch.Tensor,
     invalid = ids >= n          # the window's best row was padding
     scores = torch.where(invalid, torch.inf, scores)
     kk = min(2 * k, scores.shape[1])
-    _, pos = torch.topk(scores, kk, dim=1, largest=False, sorted=False)
+    _, pos = _select_lowest(scores, kk)
     top_ids = torch.where(torch.gather(invalid, 1, pos), -1,
                           torch.gather(ids, 1, pos))
     d2 = decode_rescore(codes, top_ids.contiguous(), rows, qp)
     if kk < k:
         d2 = torch.nn.functional.pad(d2, (0, k - kk), value=torch.inf)
         top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
-    top, pos2 = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    top, pos2 = _select_lowest(d2, k)
     out_ids = torch.gather(top_ids, 1, pos2)
     return top, torch.where(torch.isfinite(top), out_ids, -1)
 
@@ -281,10 +342,27 @@ def _select_lowest(scores: torch.Tensor, k: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k smallest entries along dim 1, ascending, ties to the lower
     position: (values, positions int64), the order ``jax.lax.top_k(−x)``
-    gives. A stable sort does it; ``torch.topk`` picks another set among
-    equal scores. The FAST and LUT-gather paths select with this alone."""
-    vals, pos = torch.sort(scores, dim=1, stable=True)
-    return vals[:, :k], pos[:, :k]
+    gives; ``torch.topk`` picks another set among equal scores. Every
+    selection of the port but the decoded tier's running merge
+    (``distances.merge_topk``) goes through here.
+
+    f32 scores are compared as JAX compares them, in IEEE total order (−0
+    below +0): their bits, negative floats flipped, as int32. Up to
+    ``_SORT_WIDTH`` columns (or for another dtype) a stable sort of those
+    does it; wider, one ``torch.topk`` of int64 keys that order as (score,
+    position), so that no two keys tie."""
+    bits = scores
+    if scores.dtype == torch.float32:
+        bits = scores.contiguous().view(torch.int32)
+        bits = bits ^ ((bits >> 31) & 0x7FFFFFFF)     # negative floats flip
+    width = scores.shape[1]
+    if width <= _SORT_WIDTH or k == 0 or bits.dtype != torch.int32:
+        pos = torch.sort(bits, dim=1, stable=True).indices[:, :k]
+    else:
+        cols = torch.arange(width, dtype=torch.int64, device=scores.device)
+        keys = (bits.to(torch.int64) << 32) | cols
+        pos = torch.topk(keys, k, dim=1, largest=False, sorted=True).indices
+    return torch.gather(scores, 1, pos), pos
 
 
 def lut_sums(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,9 @@ the JAX version leaves it to XLA. Where the JAX version takes
 ``approx_max_k``, this port takes an exact ``torch.topk`` (the JAX
 ``exact=True`` semantics), and it scans in row blocks with a running top-k,
 so the (nq, n) f32 score matrix (2 GB at nq=512, n=1M) never exists whole.
+That running merge (``distances.merge_topk``) may order equal scores unlike
+JAX; the exact rescores select with ``scan_codes._select_lowest``, ties to
+the lower candidate position as ``jax.lax.top_k`` breaks them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Tuple
 import torch
 
 from vaq_tpu_torch.ops.distances import merge_topk
+from vaq_tpu_torch.ops.scan_codes import _select_lowest
 
 # Rows per block of the decode and of the scan: bounds the f32 transients
 # (a 65536-row block of 512 queries' scores is 128 MB).
@@ -57,7 +61,7 @@ def _rescore_exact(qp: torch.Tensor, decoded: torch.Tensor, idx: torch.Tensor,
     diff = qp[:, None, :] - rows
     d2 = torch.sum(diff * diff, dim=2)
     d2 = torch.where(idx >= 0, d2, torch.inf)
-    top, pos = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    top, pos = _select_lowest(d2, k)
     return torch.clamp_min(top, 0.0), torch.gather(idx, 1, pos)
 
 
@@ -182,7 +186,7 @@ def decoded8_scan_topk(
     rows = decoded8[torch.clamp_min(idx, 0).to(torch.int64)].to(torch.float32)
     diff = queries_proj[:, None, :] - rows / dim_scales[None, None, :]
     d2 = torch.where(idx >= 0, torch.sum(diff * diff, dim=2), torch.inf)
-    top, pos = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    top, pos = _select_lowest(d2, k)
     return torch.clamp_min(top, 0.0), torch.gather(idx, 1, pos)
 
 

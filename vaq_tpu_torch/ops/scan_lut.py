@@ -13,8 +13,9 @@ The counterpart of ``vaq_tpu/ops/scan_jax.py``:
 - ``refine_topk`` (scan_jax.py:133-153, reference VAQ::refine,
   VAQ.cpp:849-876).
 
-The running top-k merge selects with ``scan_codes._select_lowest``, which
-breaks ties toward the lower position as ``jax.lax.top_k(−x)`` does.
+The running top-k merge and the refine select with
+``scan_codes._select_lowest``, which breaks ties toward the lower position
+as ``jax.lax.top_k(−x)`` does.
 """
 
 from __future__ import annotations
@@ -102,5 +103,5 @@ def refine_topk(queries: torch.Tensor, db_candidates: torch.Tensor,
     diff = queries[:, None, :] - db_candidates
     d2 = torch.sum(diff * diff, dim=2)
     d2 = torch.where(cand_labels >= 0, d2, torch.inf)
-    top, pos = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    top, pos = _select_lowest(d2, k)
     return top, torch.gather(cand_labels, 1, pos)

@@ -517,7 +517,7 @@ class VAQIndex:
                 dead = torch.isin(i, self._deleted_device())
                 d = torch.where(dead, torch.inf, d)
                 i = torch.where(dead, -1, i)
-                top, pos = torch.topk(d, k, dim=1, largest=False, sorted=True)
+                top, pos = scan_codes._select_lowest(d, k)
                 i = torch.gather(i, 1, pos)
                 return top, torch.where(torch.isfinite(top), i, -1)
         if backend == "decoded8":
