@@ -18,8 +18,8 @@ as it goes:
    is one: K1 at n = 1M codes and 512 queries, at M = 32, C = 256, d = 128
    with 128-row and with 64-row windows and at the FAST "auto" shape
    (M = 64, C = 16, L = 2), with its TFLOP/s and share of the bound; the
-   tie-exact top-k helper's two forms beside ``torch.topk`` on K1's window
-   scores; K2 at the same codes, the rescore at 512 × 200 candidates; K5
+   tie-exact top-k helper and its forms beside ``torch.topk`` on K1's
+   window scores at the port's selection widths; K2 at the same codes, the rescore at 512 × 200 candidates; K5
    over the 1M
    probe buckets (1000 clusters of 1536 rows, 112 query slots, gs = 8) with
    int8 rows, at d = 96 (the shape of JAX's transposed K6) and with bf16
@@ -34,8 +34,10 @@ as it goes:
    search on the decoded and on the codes tier (k = 100), then search 200
    and refine to 100, with times, QPS, peak device memory and recall against
    exact groundtruth, and a ``torch.profiler`` split of one 512-query codes
-   batch by kernel; K1/K2's launch counters are zeroed just before it and
-   must have moved just after;
+   batch by kernel, its busy share taken against the batch's unprofiled
+   wall; K1/K2's launch counters are zeroed just before it and must have
+   moved just after; then a codes search at k = 200 (64-row windows) with
+   K1's counter zeroed just before it;
 5. the TI/IVF path on the same index: ``attach_ivf`` with 1000 clusters
    over 16 subspaces (``bench.py:642-643``), searches at visit 0.25, 0.10,
    0.05 (the reference's Fig. 11 sweep) and 1.0, k = 100, and one search on
@@ -48,8 +50,8 @@ as it goes:
    ``search(backend="fast4")`` (K3), ``learn_quantization``, the same search
    again (K4), ``"lut_gather"``, ``"auto"`` (which the route sends to the
    codes tier: K1 must launch, K3/K4 must not), and a fast4 search of 200
-   refined to 100; K3's and K4's counters are zeroed before their steps and
-   must have moved after them;
+   refined to 100; K3's, K4's and K1's counters are zeroed before their
+   steps and must have moved after them;
 7. one index state searched on the card and through the port's CPU plain
    versions at n = 20k (the decoded and codes tiers, refine, an IVF state
    built on the card and copied to the CPU at d = 128 and d = 96, and a FAST
@@ -87,6 +89,13 @@ RTOL_KERNEL = 1e-5   # f32 sums in another order: last-bit differences
 K1_SHAPES = ((KC_N, KC_M, KC_C, KC_L, KC_NQ, KC_BR),
              (KC_N, 64, 16, 2, KC_NQ, KC_BR),
              (KC_N, KC_M, KC_C, KC_L, KC_NQ, 64))
+# (width, k) of the port's selections at 1M rows, 512 queries: the rescored
+# top-k of 2k candidates (codes, decoded, FAST, IVF second stage), the IVF
+# row pick (200 windows of 8), FAST's window pick (3912 windows), the codes
+# tier's (7813), the IVF merge (100 clusters × 192 groups) and the LUT
+# gather scan's (k + 32,768)
+SELECT_WIDTHS = ((200, 100), (1600, 200), (3912, 100), (7813, 200),
+                 (19200, 200), (32868, 100))
 N_CMP, NQ_CMP, K_CMP = 20_000, 200, 10
 DEVICE = "cuda"
 # The probe buckets of the 1M index (attach_ivf at 1000 clusters: capacity
@@ -429,27 +438,22 @@ def _check_k1(rng, shape) -> tuple[dict, torch.Tensor]:
 
 
 def _time_selection(scores: torch.Tensor, k: int) -> None:
-    """The tie-exact selection (``scan_codes._select_lowest``) in both its
-    forms beside ``torch.topk`` on one (nq, width) score matrix; the two
-    forms must agree."""
+    """The tie-exact selection (``scan_codes._select_lowest``) and each of
+    its forms beside ``torch.topk`` on one (nq, width) score matrix; all
+    must give the helper's positions."""
     from vaq_tpu_torch.ops import scan_codes
-    keep = scan_codes._SORT_WIDTH
-    times = {}
-    outs = {}
-    try:
-        for form, width in (("stable sort", 1 << 62), ("topk of (score, position)", 0)):
-            scan_codes._SORT_WIDTH = width
-            outs[form] = scan_codes._select_lowest(scores, k)
-            times[form] = _time_ms(lambda: scan_codes._select_lowest(scores, k), 20)
-    finally:
-        scan_codes._SORT_WIDTH = keep
-    a, b = outs.values()
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), "the forms differ"
+    bits = scan_codes._ordered(scores)
+    want = scan_codes._select_lowest(scores, k)[1]
+    times = {"helper": _time_ms(lambda: scan_codes._select_lowest(scores, k), 20)}
+    for form, fn in (("stable sort", scan_codes._lowest_sorted),
+                     ("topk of (score, position)", scan_codes._lowest_keyed),
+                     ("topk + ties", scan_codes._lowest_bounded)):
+        assert torch.equal(fn(bits, k), want), f"{form} differs"
+        times[form] = _time_ms(lambda: fn(bits, k), 20)
     times["torch.topk"] = _time_ms(
         lambda: torch.topk(scores, k, dim=1, largest=False, sorted=True), 20)
     log(f"[kernels] select lowest {k} of {tuple(scores.shape)}: "
-        + ", ".join(f"{f} {t:.4f} ms" for f, t in times.items())
-        + f"; the helper sorts up to width {keep}")
+        + ", ".join(f"{f} {t:.4f} ms" for f, t in times.items()))
 
 
 def phase_kernels() -> list[dict]:
@@ -462,10 +466,11 @@ def phase_kernels() -> list[dict]:
         entry, scores = _check_k1(rng, shape)
         kernels.append(entry)
         if shape == K1_SHAPES[0]:
-            # the codes tier's window pick (top-2k of 7813 windows at
-            # k = 100) and the LUT gather scan's merge width (k + 32768)
-            _time_selection(scores, 2 * 100)
-            _time_selection(torch.cat([scores] * 5, dim=1)[:, :32868], 100)
+            # on K1's window scores, at the widths the port selects from
+            wide = torch.cat([scores] * 5, dim=1)
+            for width, k in SELECT_WIDTHS:
+                _time_selection(wide[:, :width].contiguous(), k)
+            del wide
         del scores
         torch.cuda.empty_cache()
     d = KC_M * KC_L
@@ -526,23 +531,37 @@ def _step(name: str, fn, nq: int | None = None, tag: str = "main"):
     return out
 
 
-def _profile_batch(tag: str, what: str, fn) -> None:
-    """One call of ``fn`` (a 512-query search) under ``torch.profiler``:
-    its wall time, the device's busy time and share, and the device time by
-    kernel."""
+def _batch_wall_ms(fn, reps: int = 9) -> float:
+    """Median host milliseconds of one unprofiled call of ``fn`` ended by a
+    device synchronize, over ``reps`` calls after a warm-up."""
     fn()
     torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _profile_batch(tag: str, what: str, fn) -> None:
+    """One call of ``fn`` (a 512-query search) under ``torch.profiler``:
+    the device's busy time, its share of the unprofiled batch wall (the
+    profiler slows the host), and the device time by kernel."""
+    wall = _batch_wall_ms(fn)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        prof_wall = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
     busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
                if ev.device_type == cuda) / 1e3
-    log(f"[{tag}] {what}, one 512-query batch: wall {wall:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall:.1f}%); top device ops:\n"
+    log(f"[{tag}] {what}, one 512-query batch: wall {wall:.3f} ms unprofiled "
+        f"({prof_wall:.3f} ms under the profiler), device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f}% of the unprofiled wall); top device ops:\n"
         + prof.key_averages().table(sort_by="self_device_time_total", row_limit=10))
 
 
@@ -585,6 +604,13 @@ def phase_main_path() -> tuple[dict, dict]:
     log(f"[main] kernel launches during the main path: {launches}")
     _profile_batch("main", "codes", lambda: idx.search(queries[:512], 100,
                                                      backend="codes"))
+    # the codes tier at k = 200 takes 64-row windows: K1's third checked shape
+    assert idx._codes_block_rows(200) == K1_SHAPES[2][5]
+    scan_codes.decode_window_scan.launches = 0
+    _step("search codes k=200 (64-row windows)",
+          lambda: idx.search(queries, 200, backend="codes"), NQ_MAIN)
+    launches["decode_window_scan_br64"] = scan_codes.decode_window_scan.launches
+    log(f"[main] codes k=200: K1 launches {launches['decode_window_scan_br64']}")
 
     r_dec = metrics.avg_recall(l_dec, gt, 100)
     r_cod = metrics.avg_recall(l_cod, gt, 100)
@@ -677,19 +703,19 @@ def phase_ivf_path(ctx: dict) -> dict:
     # the stage split of one 512-query batch at visit 0.1
     idx.ivf.visit = 0.10
     qb = queries[:512]
-    idx.search(qb, 100, backend="ivf")
-    torch.cuda.synchronize()
+    wall = _batch_wall_ms(lambda: idx.search(qb, 100, backend="ivf"))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         idx.search(qb, 100, backend="ivf")
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        prof_wall = (time.perf_counter() - t0) * 1e3
     stages = ("ivf.probe", "ivf.groupmin", "ivf.merge", "ivf.rescore",
               "ivf.second_stage")
     split, busy = _device_split(prof, stages)
-    log(f"[ivf] visit 0.1, one 512-query batch: wall {wall:.3f} ms, device "
-        f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%); device ms by stage "
+    log(f"[ivf] visit 0.1, one 512-query batch: wall {wall:.3f} ms unprofiled "
+        f"({prof_wall:.3f} ms under the profiler), device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f}% of the unprofiled wall); device ms by stage "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     log("[ivf] top device ops:\n" + prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=12))
@@ -721,7 +747,8 @@ def phase_fast_path(ctx: dict) -> dict:
     """The FAST/LUT path at 1M × 128 on FAST_METHOD: K3 before the LUT
     quantization is learned, K4 after it, the LUT gather scan, "auto" (the
     codes tier, K1/K2, by the route JAX takes on an accelerator) and refine
-    from a fast4 search; returns K3's and K4's launches."""
+    from a fast4 search; returns K3's and K4's launches and K1's under
+    "auto"."""
     import vaq_tpu_torch as vt
     from vaq_tpu_torch import metrics
     from vaq_tpu_torch.ops import scan_codes
@@ -758,10 +785,13 @@ def phase_fast_path(ctx: dict) -> dict:
     _step("search auto, first call", lambda: idx.search(queries, 100),
           NQ_MAIN, "fast")
     _fast_search(idx, queries, gt, "auto (codes tier)")
-    log(f"[fast] auto: K1 launches {scan_codes.decode_window_scan.launches}, "
-        f"K3/K4 {counts}")
-    assert scan_codes.decode_window_scan.launches > 0, "auto did not run K1"
+    k1 = scan_codes.decode_window_scan.launches
+    log(f"[fast] auto: K1 launches {k1}, K3/K4 {counts}")
+    assert k1 > 0, "auto did not run K1"
     assert counts == {"K3": 0, "K4": 0}, counts
+    # K1's second checked shape (C = 16, 128-row windows)
+    assert (idx._codes_block_rows(100), int(idx.bits.max())) == \
+        (K1_SHAPES[1][5], K1_SHAPES[1][2].bit_length() - 1)
     _profile_batch("fast", "auto (codes tier)",
                    lambda: idx.search(queries[:512], 100))
 
@@ -776,7 +806,8 @@ def phase_fast_path(ctx: dict) -> dict:
     assert np.isfinite(d_ref).all() and (l_ref >= 0).all()
     log(f"[fast] refined 200->100 avg_recall@100 "
         f"{metrics.avg_recall(l_ref, gt, 100):.4f}")
-    launches = {"fast4_window_scan": k3, "fast4_window_scan_int8": k4}
+    launches = {"fast4_window_scan": k3, "fast4_window_scan_int8": k4,
+                "decode_window_scan_c16": k1}
     log(f"[fast] kernel launches during the FAST path: {launches}")
     return launches
 

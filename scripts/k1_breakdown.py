@@ -19,7 +19,11 @@ at the codes path's shape (1M rows, M = 32, C = 256, d = 128, 512 queries,
   the producers cost alone.
 
 Only ``kernel`` computes K1's result; the cut copies say what each part
-costs and how much of it overlaps the rest. The last line is one JSON
+costs and how much of it overlaps the rest. The copies are made by
+replacing exact lines of the kernel's source (``EPILOGUE``, ``RELEASE``
+and the ``_cut`` anchors below), so this script tracks the kernel's text:
+an edit to those lines of ``decode_window_scan.cu`` must be made here too,
+or the script stops at the anchor it cannot find. The last line is one JSON
 object of milliseconds per variant, with the card's ``nvidia-smi`` name and
 power limit.
 """

@@ -59,27 +59,34 @@ def assert_tied(d, at_least=1):
 
 @pytest.mark.parametrize("width,k", [(9, 3), (300, 40), (2048, 200),
                                      (2049, 200), (7813, 200), (5000, 4999)])
-@pytest.mark.parametrize("form", ["sort", "topk"])
-def test_select_lowest_is_jax_top_k(monkeypatch, width, k, form):
-    """Both of the helper's forms (the whole stable sort, and one
-    torch.topk of (score, position) keys) give ``jax.lax.top_k(−x)``'s
+@pytest.mark.parametrize("form", ["sort", "topk", "bounded"])
+def test_select_lowest_is_jax_top_k(width, k, form):
+    """The helper and each of its forms (the whole stable sort, one
+    torch.topk of (score, position) keys, and torch.topk for the k-th value
+    with the ties at it taken by position) give ``jax.lax.top_k(−x)``'s
     values and positions, with +inf entries, whole rows of them, −0 beside
     +0, and on the int32 scores of the FAST path."""
-    monkeypatch.setattr(scan_codes, "_SORT_WIDTH",
-                        10**9 if form == "sort" else 0)
+    lowest = {"sort": scan_codes._lowest_sorted,
+              "topk": scan_codes._lowest_keyed,
+              "bounded": scan_codes._lowest_bounded}[form]
     x = small_ints((5, width), seed=width, lo=0, hi=5)
     x[0, : width // 2] = np.inf
     x[1] = np.inf
     x[2, -1] = -1.0                         # a single smallest, at the end
     x[3, ::3] = -0.0                        # −0 ties with +0, as in JAX
-    vals, pos = scan_codes._select_lowest(torch.as_tensor(x), k)
     neg, want = jax.lax.top_k(-jnp.asarray(x), k)
+    xt = torch.as_tensor(x)
+    pos = lowest(scan_codes._ordered(xt), k)
     assert pos.dtype == torch.int64
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(want))
+    vals, pos = scan_codes._select_lowest(xt, k)
     np.testing.assert_array_equal(pos.numpy(), np.asarray(want))
     np.testing.assert_array_equal(vals.numpy(), -np.asarray(neg))
     xi = x[2:].astype(np.int32)             # K4's integer window sums
-    _, pos = scan_codes._select_lowest(torch.as_tensor(xi), k)
     _, want = jax.lax.top_k(-jnp.asarray(xi), k)
+    pos = lowest(scan_codes._ordered(torch.as_tensor(xi)), k)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(want))
+    _, pos = scan_codes._select_lowest(torch.as_tensor(xi), k)
     np.testing.assert_array_equal(pos.numpy(), np.asarray(want))
 
 

@@ -348,21 +348,62 @@ def _select_lowest(scores: torch.Tensor, k: int
 
     f32 scores are compared as JAX compares them, in IEEE total order (−0
     below +0): their bits, negative floats flipped, as int32. Up to
-    ``_SORT_WIDTH`` columns (or for another dtype) a stable sort of those
-    does it; wider, one ``torch.topk`` of int64 keys that order as (score,
-    position), so that no two keys tie."""
-    bits = scores
-    if scores.dtype == torch.float32:
-        bits = scores.contiguous().view(torch.int32)
-        bits = bits ^ ((bits >> 31) & 0x7FFFFFFF)     # negative floats flip
-    width = scores.shape[1]
-    if width <= _SORT_WIDTH or k == 0 or bits.dtype != torch.int32:
-        pos = torch.sort(bits, dim=1, stable=True).indices[:, :k]
+    ``_SORT_WIDTH`` columns a stable sort of those does it; wider, one
+    ``torch.topk`` of int64 keys that order as (score, position)."""
+    bits = _ordered(scores)
+    if scores.shape[1] <= _SORT_WIDTH:
+        pos = _lowest_sorted(bits, k)
     else:
-        cols = torch.arange(width, dtype=torch.int64, device=scores.device)
-        keys = (bits.to(torch.int64) << 32) | cols
-        pos = torch.topk(keys, k, dim=1, largest=False, sorted=True).indices
+        pos = _lowest_keyed(bits, k)
     return torch.gather(scores, 1, pos), pos
+
+
+def _ordered(scores: torch.Tensor) -> torch.Tensor:
+    """``scores`` as values whose order is JAX's: f32 as int32 bits with
+    negative floats flipped (IEEE total order, −0 below +0), other dtypes
+    as they are."""
+    if scores.dtype != torch.float32:
+        return scores
+    bits = scores.contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def _lowest_sorted(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k lowest, ties to the lower position: the first k
+    of a stable sort of the whole row."""
+    return torch.sort(bits, dim=1, stable=True).indices[:, :k]
+
+
+def _lowest_keyed(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """The same, by one ``torch.topk`` of int64 keys that order as (value,
+    position), so that no two keys tie (``bits`` int32)."""
+    cols = torch.arange(bits.shape[1], dtype=torch.int64, device=bits.device)
+    keys = (bits.to(torch.int64) << 32) | cols
+    return torch.topk(keys, k, dim=1, largest=False, sorted=True).indices
+
+
+def _lowest_bounded(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """The same, by ``torch.topk`` for the k-th lowest value, then every
+    entry below it and the first entries equal to it by position (k in
+    all), then a stable sort of those k, which are in position order."""
+    nq, width = bits.shape
+    if k == 0:
+        return torch.empty((nq, 0), dtype=torch.int64, device=bits.device)
+    kth = torch.topk(bits, k, dim=1, largest=False, sorted=False
+                     ).values.amax(1, keepdim=True)
+    below = bits < kth
+    equal = bits == kth
+    need = k - below.sum(1, keepdim=True, dtype=torch.int32)
+    take = below | (equal & (torch.cumsum(equal, 1, dtype=torch.int32)
+                             <= need))
+    # each row takes exactly k; the rest scatter into a spare column k
+    slot = torch.where(take, torch.cumsum(take, 1, dtype=torch.int32) - 1, k)
+    cols = torch.arange(width, dtype=torch.int64, device=bits.device)
+    pos = torch.empty((nq, k + 1), dtype=torch.int64, device=bits.device)
+    pos.scatter_(1, slot.long(), cols.expand(nq, width))
+    pos = pos[:, :k]
+    order = torch.sort(torch.gather(bits, 1, pos), dim=1, stable=True).indices
+    return torch.gather(pos, 1, order)
 
 
 def lut_sums(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
