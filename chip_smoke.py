@@ -446,8 +446,7 @@ def _time_selection(scores: torch.Tensor, k: int) -> None:
     want = scan_codes._select_lowest(scores, k)[1]
     times = {"helper": _time_ms(lambda: scan_codes._select_lowest(scores, k), 20)}
     for form, fn in (("stable sort", scan_codes._lowest_sorted),
-                     ("topk of (score, position)", scan_codes._lowest_keyed),
-                     ("topk + ties", scan_codes._lowest_bounded)):
+                     ("topk of (score, position)", scan_codes._lowest_keyed)):
         assert torch.equal(fn(bits, k), want), f"{form} differs"
         times[form] = _time_ms(lambda: fn(bits, k), 20)
     times["torch.topk"] = _time_ms(

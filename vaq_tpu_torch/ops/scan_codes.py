@@ -70,11 +70,12 @@ _K1_Q_TILE = 128
 _K1_PAD = 8
 _K1_MAX_Q_CHUNK = 512
 # _select_lowest sorts rows up to this width whole; wider rows take one
-# torch.topk of (score, position) keys, the faster form on an H100 at the
-# codes tier's window pick (512 × 7813, k = 200: 0.366 ms against the
-# sort's 0.426) and at the gather scan's merge (512 × 32,868: 1.13 against
-# 1.64), as chip_smoke.py times them.
-_SORT_WIDTH = 2048
+# torch.topk of (score, position) keys. On an H100 (chip_smoke.py, 512 rows)
+# the sort wins at 200, 1600 and 3912 columns (0.052 / 0.067 / 0.077 ms
+# against 0.076 / 0.115 / 0.225) and the keys at 7813, 19,200 and 32,868
+# (0.298 / 0.641 / 0.924 against 0.380 / 0.820 / 1.420). The crossover lies
+# between 3912 and 7813; no selection of the port falls in between.
+_SORT_WIDTH = 4096
 # Centroid magnitudes at or above this are sentinels, zeroed in the tables
 # (scan_pallas.py:461,555). vaq.PAD_SENTINEL (1e18) stays below it, as in the
 # JAX tables; codes never address padded rows either way.
@@ -348,10 +349,11 @@ def _select_lowest(scores: torch.Tensor, k: int
 
     f32 scores are compared as JAX compares them, in IEEE total order (−0
     below +0): their bits, negative floats flipped, as int32. Up to
-    ``_SORT_WIDTH`` columns a stable sort of those does it; wider, one
-    ``torch.topk`` of int64 keys that order as (score, position)."""
+    ``_SORT_WIDTH`` columns (or for another dtype than f32 and int32) a
+    stable sort of those does it; wider, one ``torch.topk`` of int64 keys
+    that order as (score, position)."""
     bits = _ordered(scores)
-    if scores.shape[1] <= _SORT_WIDTH:
+    if scores.shape[1] <= _SORT_WIDTH or bits.dtype != torch.int32:
         pos = _lowest_sorted(bits, k)
     else:
         pos = _lowest_keyed(bits, k)
@@ -380,30 +382,6 @@ def _lowest_keyed(bits: torch.Tensor, k: int) -> torch.Tensor:
     cols = torch.arange(bits.shape[1], dtype=torch.int64, device=bits.device)
     keys = (bits.to(torch.int64) << 32) | cols
     return torch.topk(keys, k, dim=1, largest=False, sorted=True).indices
-
-
-def _lowest_bounded(bits: torch.Tensor, k: int) -> torch.Tensor:
-    """The same, by ``torch.topk`` for the k-th lowest value, then every
-    entry below it and the first entries equal to it by position (k in
-    all), then a stable sort of those k, which are in position order."""
-    nq, width = bits.shape
-    if k == 0:
-        return torch.empty((nq, 0), dtype=torch.int64, device=bits.device)
-    kth = torch.topk(bits, k, dim=1, largest=False, sorted=False
-                     ).values.amax(1, keepdim=True)
-    below = bits < kth
-    equal = bits == kth
-    need = k - below.sum(1, keepdim=True, dtype=torch.int32)
-    take = below | (equal & (torch.cumsum(equal, 1, dtype=torch.int32)
-                             <= need))
-    # each row takes exactly k; the rest scatter into a spare column k
-    slot = torch.where(take, torch.cumsum(take, 1, dtype=torch.int32) - 1, k)
-    cols = torch.arange(width, dtype=torch.int64, device=bits.device)
-    pos = torch.empty((nq, k + 1), dtype=torch.int64, device=bits.device)
-    pos.scatter_(1, slot.long(), cols.expand(nq, width))
-    pos = pos[:, :k]
-    order = torch.sort(torch.gather(bits, 1, pos), dim=1, stable=True).indices
-    return torch.gather(pos, 1, order)
 
 
 def lut_sums(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
