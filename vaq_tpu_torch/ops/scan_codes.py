@@ -71,10 +71,11 @@ _K1_PAD = 8
 _K1_MAX_Q_CHUNK = 512
 # _select_lowest sorts rows up to this width whole; wider rows take one
 # torch.topk of (score, position) keys. On an H100 (chip_smoke.py, 512 rows)
-# the sort wins at 200, 1600 and 3912 columns (0.052 / 0.067 / 0.077 ms
-# against 0.076 / 0.115 / 0.225) and the keys at 7813, 19,200 and 32,868
-# (0.298 / 0.641 / 0.924 against 0.380 / 0.820 / 1.420). The crossover lies
-# between 3912 and 7813; no selection of the port falls in between.
+# the sort wins at 1600 and 3912 columns (0.062-0.067 / 0.077-0.078 ms
+# against 0.115-0.116 / 0.225-0.470), the keys at 7813, 19,200 and 32,868
+# (0.298 / 0.641 / 0.924 against 0.380 / 0.820 / 1.420), and at 200 the two
+# trade places from run to run (0.05-0.08 ms). The crossover lies between
+# 3912 and 7813; no selection of the port falls in between.
 _SORT_WIDTH = 4096
 # Centroid magnitudes at or above this are sentinels, zeroed in the tables
 # (scan_pallas.py:461,555). vaq.PAD_SENTINEL (1e18) stays below it, as in the
