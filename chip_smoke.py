@@ -19,11 +19,13 @@ as it goes:
    with 128-row and with 64-row windows and at the FAST "auto" shape
    (M = 64, C = 16, L = 2), with its TFLOP/s and share of the bound; the
    tie-exact top-k helper and its forms beside ``torch.topk`` on K1's
-   window scores at the port's selection widths; K2 at the same codes, the rescore at 512 × 200 candidates; K5
-   over the 1M
-   probe buckets (1000 clusters of 1536 rows, 112 query slots, gs = 8) with
-   int8 rows, at d = 96 (the shape of JAX's transposed K6) and with bf16
-   rows; K7 at 512 queries × 200 windows of 8 rows, int8 and bf16, d = 128
+   window scores at the port's selection widths; the decoded tier's
+   selection of one batch (16 blocks of 512 × 65,536, kk = 200) as
+   ``lowest_over_blocks``, tie-exact, and as the parent's running merge; K2 at the same codes, the rescore at 512 × 200 candidates; K5
+   over the 1M probe buckets (1000 clusters of 1536 rows, 112 query slots,
+   gs = 8) with int8 rows, at d = 96 (the shape of JAX's transposed K6),
+   with bf16 rows, with about 51 of the 112 slots occupied (visit 0.1) and
+   at qcap = 512 (visit 1.0); K7 at 512 queries × 200 windows of 8 rows, int8 and bf16, d = 128
    and 96 (K8); K3 (f32 LUT) and K4 (s8 LUT), keys bit-equal to the plain
    version's, at the FAST path's shape (M = 64, C = 16, 1M rows padded to
    1,001,472, 512 queries, 256-row windows) and at M = 32, C = 256, 262,144
@@ -102,6 +104,9 @@ DEVICE = "cuda"
 # ceil(1.5·1M/1000) rounded to 512) and the slots pick_qcap(512, 100, 1000)
 # gives at visit 0.1; K7 at 512 queries × m = 200 windows of gs = 8 rows.
 KC_NCL, KC_CAP, KC_QCAP, KC_GS, KC_WIN = 1000, 1536, 112, 8, 200
+# K5's other two checks: about 51 of the 112 slots occupied per cluster (the
+# dispatch's fill at visit 0.1), and qcap = 512 (visit 1.0)
+KC_SLOTS_MEAN, KC_QCAP_FULL = 51, 512
 TI_CLUSTERS, TI_SEGMENTS = 1000, 16       # bench.py:642-643
 VISITS = (0.25, 0.10, 0.05, 1.0)          # Fig. 11 (ExperimentsParameters.txt:114-124), then all
 # K3/K4 at the FAST path's shape (M = 64, C = 16, 256-row windows, 512
@@ -245,38 +250,55 @@ def _probe_rows(gen, d, dtype):
     return x.view(KC_NCL * KC_CAP, d), w
 
 
-def _check_groupmin(gen, d: int, dtype: str) -> dict:
-    """K5 against its plain version over the 1M probe buckets, all slots
-    occupied; tolerance 1e-5 of the terms summed (bf16 × int8/bf16 products
-    are exact in f32; only the order of the sums differs)."""
+def _check_groupmin(gen, d: int, dtype: str, qcap: int = KC_QCAP,
+                    slots_mean: int | None = None) -> dict:
+    """K5 against its plain version over the 1M probe buckets, all ``qcap``
+    slots occupied or, with ``slots_mean``, n_slots drawn around it per
+    cluster (as the dispatch fills them); tolerance 1e-5 of the terms summed
+    (bf16 × int8/bf16 products are exact in f32; only the order of the sums
+    differs). The bound counts what these inputs need: the rows, the live
+    slots' slab, the minima, and the products of live slots only."""
     from vaq_tpu_torch.ops import probe_scan
     dev = torch.device(DEVICE)
     rows, w = _probe_rows(gen, d, dtype)
-    qsl = (-2.0 * torch.randn((KC_NCL, KC_QCAP, d), generator=gen,
+    qsl = (-2.0 * torch.randn((KC_NCL, qcap, d), generator=gen,
                               device=dev)).to(torch.bfloat16)
-    args = (qsl, rows, w, KC_NCL, KC_CAP, KC_GS)
+    n_slots = None
+    live = KC_NCL * qcap
+    if slots_mean is not None:
+        n_slots = torch.clamp(torch.round(
+            slots_mean + 12.0 * torch.randn((KC_NCL,), generator=gen, device=dev)),
+            0, qcap).to(torch.int32)
+        live = int(n_slots.sum())
+    args = (qsl, rows, w, KC_NCL, KC_CAP, KC_GS, n_slots)
     got = probe_scan.groupmin_window_scan(*args)
     ref = probe_scan.groupmin_window_scan_ref(*args)
     torch.cuda.synchronize()
-    assert got.shape == (KC_NCL, KC_QCAP, KC_CAP // KC_GS)
-    err = _assert_within_terms(got, ref, _groupmin_scale(*args),
-                               f"K5 d={d} {dtype}")
+    assert got.shape == (KC_NCL, qcap, KC_CAP // KC_GS)
+    err = _assert_within_terms(got, ref, _groupmin_scale(*args[:6]),
+                               f"K5 d={d} {dtype} qcap={qcap}")
     ms = _time_ms(lambda: probe_scan.groupmin_window_scan(*args), 10)
     plain = _time_ms(lambda: probe_scan.groupmin_window_scan_ref(*args), 3)
     rows_bf = rows.view(KC_NCL, KC_CAP, d).to(torch.bfloat16).transpose(1, 2)
     library = _time_ms(lambda: torch.bmm(qsl, rows_bf), 10)
+    del rows_bf
     ng = KC_CAP // KC_GS
-    nbytes = (rows.numel() * rows.element_size() + qsl.numel() * 2 + d * 4
-              + KC_NCL * KC_QCAP * ng * 4)
-    ops = 2.0 * KC_NCL * KC_QCAP * KC_CAP * d + 3.0 * KC_NCL * KC_CAP * d
+    nbytes = (rows.numel() * rows.element_size() + live * d * 2 + d * 4
+              + KC_NCL * qcap * ng * 4)
+    ops = 2.0 * live * KC_CAP * d + 3.0 * KC_NCL * KC_CAP * d
     bound = _bound(nbytes, ops, "bf16")
-    log(f"[kernels] K5 groupmin_window_scan d={d} {dtype} rows: max|Δ| "
-        f"{err:.3g}, kernel {ms:.3f} ms, plain {plain:.3f} ms, bf16 bmm "
-        f"{library:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    what = (f"d={d} {dtype} rows, qcap={qcap}"
+            + ("" if n_slots is None else f", {live / KC_NCL:.1f} live slots a cluster"))
+    log(f"[kernels] K5 groupmin_window_scan {what}: max|Δ| {err:.3g}, kernel "
+        f"{ms:.3f} ms ({100 * bound[0] / ms:.1f}% of the bound), plain "
+        f"{plain:.3f} ms, bf16 bmm {library:.3f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]})")
     k6 = d % 128 != 0
-    return _entry("groupmin_window_scan" + (f"_d{d}" if k6 else "")
-                  + ("" if dtype == "int8" else "_bf16"),
-                  "vaq_tpu_torch/csrc/groupmin_window_scan.cu",
+    name = ("groupmin_window_scan" + (f"_d{d}" if k6 else "")
+            + ("" if dtype == "int8" else "_bf16")
+            + ("" if qcap == KC_QCAP else f"_q{qcap}")
+            + ("" if slots_mean is None else f"_slots{slots_mean}"))
+    return _entry(name, "vaq_tpu_torch/csrc/groupmin_window_scan.cu",
                   "vaq_tpu/ops/probe_pallas.py:" + ("205" if k6 else "158"),
                   err, ms, plain, bound, library)
 
@@ -455,6 +477,52 @@ def _time_selection(scores: torch.Tensor, k: int) -> None:
         + ", ".join(f"{f} {t:.4f} ms" for f, t in times.items()))
 
 
+def _time_block_selection(gen, nq: int = KC_NQ, kk: int = 200,
+                          block: int = 65536, n_blocks: int = 16) -> None:
+    """The decoded tier's selection of one 512-query batch at 1M rows (16
+    blocks of 65,536 columns, kk = 200) three ways: ``lowest_over_blocks``
+    (each block's ``torch.topk`` of kk + TIE_SLACK, the check, one final
+    sort), its tie-exact form (each block through ``_select_lowest``, as it
+    runs where a tie group outruns the margin), and the parent's running
+    merge (``torch.topk`` of the carried best and each block, not
+    tie-exact). The first two must agree."""
+    from vaq_tpu_torch.ops import distances, scan_codes
+    dev = torch.device(DEVICE)
+    scores = torch.randn((n_blocks, nq, block), generator=gen, device=dev)
+
+    def blocks():
+        return ((scores[i], i * block) for i in range(n_blocks))
+
+    def exact():
+        vals, ids = zip(*(scan_codes._select_lowest(scores[i], kk) for i in range(n_blocks)))
+        v = torch.cat(vals, 1)
+        i = torch.cat([p.to(torch.int32) + n * block for n, p in enumerate(ids)], 1)
+        key = (scan_codes._ordered(v).to(torch.int64) << 32) | (i.to(torch.int64) + 1)
+        order = torch.sort(key, dim=1).indices[:, :kk]
+        return torch.gather(v, 1, order), torch.gather(i, 1, order)
+
+    def running_merge():
+        best_d = torch.empty((nq, 0), device=dev)
+        best_i = torch.empty((nq, 0), dtype=torch.int32, device=dev)
+        for n in range(n_blocks):
+            cand_d = torch.cat([best_d, scores[n]], 1)
+            cand_i = torch.cat([best_i, torch.arange(n * block, (n + 1) * block, dtype=torch.int32,
+                                                     device=dev).expand(nq, -1)], 1)
+            best_d, pos = torch.topk(cand_d, kk, dim=1, largest=False, sorted=True)
+            best_i = torch.gather(cand_i, 1, pos)
+        return best_d, best_i
+
+    got = distances.lowest_over_blocks(blocks, kk)
+    want = exact()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    times = {"lowest_over_blocks": _time_ms(lambda: distances.lowest_over_blocks(blocks, kk), 10),
+             "tie-exact blocks": _time_ms(exact, 10),
+             "running torch.topk merge (parent)": _time_ms(running_merge, 10)}
+    del scores
+    log(f"[kernels] decoded-tier selection, {n_blocks} blocks of {nq} × {block}, kk = {kk}: "
+        + ", ".join(f"{f} {t:.4f} ms" for f, t in times.items()))
+
+
 def phase_kernels() -> list[dict]:
     """Every kernel against its plain version on the card."""
     from vaq_tpu_torch.ops import scan_codes
@@ -503,8 +571,14 @@ def phase_kernels() -> list[dict]:
                "vaq_tpu/ops/scan_pallas.py:477", k2_err, k2_ms, k2_plain,
                k2_bound, None))
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    _time_block_selection(gen)
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
         kernels.append(_check_groupmin(gen, d_k, dtype))
+        torch.cuda.empty_cache()
+    # partly filled slots, as the dispatch leaves them at visit 0.1, and the
+    # qcap of visit 1.0 (pick_qcap gives nq = 512 there)
+    for qcap, mean in ((KC_QCAP, KC_SLOTS_MEAN), (KC_QCAP_FULL, None)):
+        kernels.append(_check_groupmin(gen, D_MAIN, "int8", qcap, mean))
         torch.cuda.empty_cache()
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
         kernels.append(_check_rescore(gen, d_k, dtype))

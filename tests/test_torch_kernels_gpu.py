@@ -222,10 +222,14 @@ def rescore_term_scale(q, w, rows, wblk, gs):
 
 # (ncl, cap, qcap, d, gs): the 1M bucket shape (scaled down), ragged slot
 # tiles, d = 96 (the K6 case) and 64, groups shorter and longer than the
-# kernel's 64-row tile
+# kernel's 128-row tile, slots in three 128-slot chunks, d = 96 at gs = 8, a
+# bucket that ends in half a tile, and d = 960 (GIST), whose tiles do not fit
+# in shared memory whole and go in depth slices
 GROUPMIN_SHAPES = [(3, 512, 128, 128, 8), (2, 1536, 112, 128, 8),
                    (2, 1024, 40, 96, 16), (2, 512, 70, 64, 64),
-                   (1, 2048, 33, 128, 256), (2, 1024, 65, 96, 128)]
+                   (1, 2048, 33, 128, 256), (2, 1024, 65, 96, 128),
+                   (2, 1536, 300, 128, 8), (2, 1024, 112, 96, 8),
+                   (2, 576, 40, 128, 16), (1, 512, 20, 960, 8)]
 
 
 @pytest.mark.gpu
@@ -249,6 +253,32 @@ def test_groupmin_window_scan_kernel_matches_plain(cuda, dtype, shape, slots):
     assert probe_scan.groupmin_window_scan.launches == before + 1
     ref = probe_scan.groupmin_window_scan_ref(*args, n_slots)
     assert got.shape == (ncl, qcap, cap // gs)
+    assert_scores_close(got.cpu(), ref.cpu(),
+                        groupmin_term_scale(qsl, rows, w, ncl, cap, gs))
+
+
+# (ncl, cap, qcap, d, gs) with n_slots (qcap, 0, 2·qcap/3 + 1, 17): one
+# cluster full, one empty, two with live slots that end inside a 16-slot tile
+# (and, at qcap = 300, inside the second 128-slot chunk)
+PARTIAL_SLOT_SHAPES = [(4, 1536, 112, 128, 8), (4, 1024, 300, 128, 8),
+                       (4, 1024, 112, 96, 8), (4, 2048, 70, 128, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("shape", PARTIAL_SLOT_SHAPES)
+def test_groupmin_window_scan_kernel_partial_slots(cuda, dtype, shape):
+    ncl, cap, qcap, d, gs = shape
+    qsl, rows, w = make_groupmin_inputs(ncl, cap, qcap, d, dtype, seed=4)
+    args = (torch.as_tensor(qsl, device=cuda).to(torch.bfloat16),
+            to_rows(rows, cuda), torch.as_tensor(w, device=cuda), ncl, cap, gs)
+    n_slots = torch.tensor([qcap, 0, 2 * qcap // 3 + 1, 17], dtype=torch.int32,
+                           device=cuda)
+    got = probe_scan.groupmin_window_scan(*args, n_slots)
+    torch.cuda.synchronize()
+    ref = probe_scan.groupmin_window_scan_ref(*args, n_slots)
+    assert torch.isinf(got[1]).all() and torch.isinf(got[3, 17:]).all()
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[3, :17]).all()
     assert_scores_close(got.cpu(), ref.cpu(),
                         groupmin_term_scale(qsl, rows, w, ncl, cap, gs))
 

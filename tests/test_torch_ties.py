@@ -9,9 +9,11 @@ rows), so every distance and score is exact in f32 on both sides, and many
 base rows are duplicates, so distances tie bit for bit. The codes tier, the
 decoded rescores, refine, an IVF search on one hand-built state and the
 codes tier's tombstone filter must then return JAX's ids exactly, not only
-as sets. The decoded tier's running merge (``distances.merge_topk``) is not
-tie-exact and is replaced here by JAX's candidate order, so that the
-rescore after it is held exactly.
+as sets. So must the running merges of the decoded tiers and of
+``exact_search`` (``distances.lowest_over_blocks`` over several row
+blocks), both where ties reach past what a block's ``torch.topk`` kept (the
+scan is redone tie-exact) and where they do not (one sort of the kept
+entries by value and id).
 """
 
 import io
@@ -26,13 +28,14 @@ import torch
 import vaq_tpu
 import vaq_tpu_torch
 from vaq_tpu import ivf as jivf
+from vaq_tpu.ops import distances as jdist
 from vaq_tpu.ops import scan_decoded as jdec
 from vaq_tpu.ops import scan_jax as jlut
 from vaq_tpu.ops import scan_pallas
 from vaq_tpu_torch import io as port_io
 from vaq_tpu_torch import ivf
 from vaq_tpu_torch.convert import index_from_numpy, ivf_state_from_numpy
-from vaq_tpu_torch.ops import scan_codes, scan_decoded, scan_lut
+from vaq_tpu_torch.ops import distances, scan_codes, scan_decoded, scan_lut
 
 torch.set_num_threads(2)  # six test workers share the host
 
@@ -192,6 +195,92 @@ def test_decoded_rescores_ties_match_jax_exactly(monkeypatch, tier):
     np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
     np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
     assert_tied(d_j)
+
+
+def decoded_tier(tier, rows, norms, qp, k):
+    """(JAX's exact=True result, the port's) for one decoded tier."""
+    if tier == "decoded":
+        want = jdec.decoded_scan_topk(
+            jnp.asarray(rows, jnp.bfloat16), jnp.asarray(norms),
+            jnp.asarray(qp), k, exact=True)
+        got = scan_decoded.decoded_scan_topk(
+            torch.as_tensor(rows).to(torch.bfloat16), torch.as_tensor(norms),
+            torch.as_tensor(qp), k)
+    else:
+        r8 = rows.astype(np.int8)
+        ones = np.ones(rows.shape[1], np.float32)
+        want = jdec.decoded8_scan_topk(
+            jnp.asarray(r8.T.copy()), jnp.asarray(ones), jnp.asarray(norms),
+            jnp.asarray(r8.T.copy()), jnp.asarray(qp), k, exact=True)
+        got = scan_decoded.decoded8_scan_topk(
+            torch.as_tensor(r8), torch.as_tensor(ones),
+            torch.as_tensor(norms), torch.as_tensor(qp), k)
+    return want, got
+
+
+@pytest.mark.parametrize("slack", [8, 1])
+@pytest.mark.parametrize("k", [5, 12])
+@pytest.mark.parametrize("tier", ["decoded", "decoded8"])
+def test_decoded_tiers_ties_match_jax_exactly(monkeypatch, tier, k, slack):
+    """The whole decoded and int8 tiers, blocked scan included, over six
+    16-row blocks: JAX's ``exact=True`` ids and distances, with the blocks'
+    margin as it is and cut to 1 (so that tie groups outrun it)."""
+    monkeypatch.setattr(scan_decoded, "BLOCK_ROWS", 16)
+    monkeypatch.setattr(distances, "TIE_SLACK", slack)
+    rows, norms, qp = decoded_inputs()
+    (d_j, i_j), (d_t, i_t) = decoded_tier(tier, rows, norms, qp, k)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+    assert_tied(d_j)
+
+
+@pytest.mark.parametrize("slack", [8, 1])
+@pytest.mark.parametrize("k", [5, 40, 100])
+def test_exact_search_ties_match_jax_exactly(monkeypatch, k, slack):
+    """``exact_search`` over 16-row blocks against JAX's over 16-row
+    blocks: the same ids and distances (at k = 100 > n the +inf / −1 tail
+    too), with the blocks' margin as it is and cut to 1."""
+    monkeypatch.setattr(distances, "BLOCK_ROWS", 16)
+    monkeypatch.setattr(distances, "TIE_SLACK", slack)
+    rows, _, qp = decoded_inputs(seed=12)
+    d_j, i_j = jdist.exact_search(jnp.asarray(qp), jnp.asarray(rows), k,
+                                  block_rows=16)
+    d_t, i_t = distances.exact_search(torch.as_tensor(qp),
+                                      torch.as_tensor(rows), k)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+    assert_tied(d_j, at_least=k // 2)
+
+
+@pytest.mark.parametrize("k,sevens,redone", [(2, False, False),
+                                              (2, True, True),
+                                              (1, False, True)])
+def test_lowest_over_blocks_checked_and_redone(monkeypatch, k, sevens,
+                                               redone):
+    """Each 4-column block keeps its k + 1 lowest by torch.topk. Where no
+    tie group reaches the last kept place the scan runs once, and the final
+    sort by (value, id) gives JAX's result; where one does (k = 2 with two
+    7s in row 1's second block, k = 1 with the 1s of row 0's first), it runs
+    again tie-exact, with the same result."""
+    monkeypatch.setattr(distances, "TIE_SLACK", 1)
+    # at k = 2 every block keeps ties, none at its last kept place
+    x = np.array([[1, 1, 6, 9, 0, 0, 9, 8, 7, 5, 5, 6],
+                  [2, 2, 9, 8, 0, 8, 7, 9, 3, 3, 6, 4]], np.float32)
+    if sevens:
+        x[1, 5] = 7
+    neg, want = jax.lax.top_k(-jnp.asarray(x), k)
+    xt = torch.as_tensor(x)
+    calls = []
+
+    def blocks():
+        calls.append(1)
+        for start in range(0, x.shape[1], 4):
+            yield xt[:, start:start + 4], start
+
+    d, i = distances.lowest_over_blocks(blocks, k)
+    assert len(calls) == (2 if redone else 1)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(d.numpy(), -np.asarray(neg))
 
 
 def test_refine_ties_match_jax_exactly():

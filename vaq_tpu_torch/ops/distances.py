@@ -16,10 +16,15 @@ import numpy as np
 import torch
 
 from vaq_tpu_torch.device import DEFAULT, resolve
+from vaq_tpu_torch.ops.scan_codes import _ordered, _select_lowest
 
 # Database rows per block of exact_search (a block of 1000 queries' f32
 # distances is 512 MB).
 BLOCK_ROWS = 131072
+# Entries a block keeps past the k it may contribute (lowest_over_blocks):
+# more than this many equal values at a block's k-th place send the scan to
+# its tie-exact form.
+TIE_SLACK = 8
 
 
 def pairwise_sq_dists(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -30,20 +35,52 @@ def pairwise_sq_dists(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(d2, 0.0)
 
 
-def merge_topk(best_d: torch.Tensor, best_i: torch.Tensor, d: torch.Tensor,
-               ids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold a block's (nq, b) distances with ids into the running ascending
-    (nq, k) best. Ties may come out in any order (``torch.topk`` does not
-    promise the lower-index-first order of ``jax.lax.top_k``)."""
-    cand_d = torch.cat([best_d, d], dim=1)
-    cand_i = torch.cat([best_i, ids], dim=1)
-    top_d, pos = torch.topk(cand_d, k, dim=1, largest=False, sorted=True)
-    return top_d, torch.gather(cand_i, 1, pos)
+def lowest_over_blocks(blocks, k: int, carry=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k lowest entries of rows that come in column blocks, ascending,
+    ties to the lower id: ``jax.lax.top_k(−x)``'s set and order over the
+    whole row, as the JAX package's running merge keeps them.
+
+    ``blocks()`` yields (scores (nq, b) f32, id of its first column) for
+    each block, ids rising from block to block; ``carry`` (values, int32
+    ids ≥ −1) stands before the first block, as the JAX merge's initial
+    best does. Each block keeps its ``k + TIE_SLACK`` lowest by one
+    ``torch.topk``, which may pick any of equal values; where its k-th kept
+    value is below its last kept one in every row, the block's k lowest by
+    (value, id) are all kept whatever topk picked among ties, and one sort
+    of the kept entries by (value in IEEE total order, id) gives the
+    result. Where a tie group reaches the last kept place (read once per
+    scan), the scan runs again with each block's k lowest taken tie-exact
+    (``scan_codes._select_lowest``)."""
+    for exact in (False, True):
+        straddle = None
+        vals, ids = ([carry[0]], [carry[1]]) if carry is not None else ([], [])
+        for scores, first in blocks():
+            width = scores.shape[1]
+            if exact:
+                v, pos = _select_lowest(scores, min(k, width))
+            else:
+                kb = min(k + TIE_SLACK, width)
+                v, pos = torch.topk(scores, kb, dim=1, largest=False,
+                                    sorted=True)
+                if kb < width:
+                    tie = torch.any(v[:, k - 1] == v[:, kb - 1])
+                    straddle = tie if straddle is None else straddle | tie
+            vals.append(v)
+            ids.append((pos + first).to(torch.int32))
+        if exact or straddle is None or not bool(straddle):
+            break
+    v = torch.cat(vals, dim=1)
+    i = torch.cat(ids, dim=1)
+    key = (_ordered(v).to(torch.int64) << 32) | (i.to(torch.int64) + 1)
+    order = torch.sort(key, dim=1).indices[:, :k]
+    return torch.gather(v, 1, order), torch.gather(i, 1, order)
 
 
 def exact_search(queries: torch.Tensor, db: torch.Tensor, k: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact L2 top-k: blocked f32 matmul + streaming top-k merge.
+    """Exact L2 top-k: blocked f32 matmul, each block's lowest kept, ties to
+    the lower id as in the JAX version's running merge.
 
     queries (nq, d) and db (n, d) f32 on one device. Returns (sq_dists
     (nq, k) f32 ascending, labels (nq, k) int32); rows past n are absent, so
@@ -53,15 +90,16 @@ def exact_search(queries: torch.Tensor, db: torch.Tensor, k: int
     nq = queries.shape[0]
     dev = queries.device
     qn = torch.sum(queries * queries, dim=1, keepdim=True)
-    best_d = torch.full((nq, k), float("inf"), device=dev)
-    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
-    for start in range(0, n, BLOCK_ROWS):
-        blk = db[start:start + BLOCK_ROWS]
-        xn = torch.sum(blk * blk, dim=1)
-        d2 = qn - 2.0 * (queries @ blk.T) + xn[None, :]
-        ids = torch.arange(start, start + blk.shape[0], dtype=torch.int32,
-                           device=dev).expand(nq, -1)
-        best_d, best_i = merge_topk(best_d, best_i, d2, ids, k)
+
+    def blocks():
+        for start in range(0, n, BLOCK_ROWS):
+            blk = db[start:start + BLOCK_ROWS]
+            xn = torch.sum(blk * blk, dim=1)
+            yield qn - 2.0 * (queries @ blk.T) + xn[None, :], start
+
+    best_d, best_i = lowest_over_blocks(blocks, k, (
+        torch.full((nq, k), float("inf"), device=dev),
+        torch.full((nq, k), -1, dtype=torch.int32, device=dev)))
     return torch.clamp_min(best_d, 0.0), best_i
 
 

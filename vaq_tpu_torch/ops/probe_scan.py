@@ -40,7 +40,8 @@ from vaq_tpu_torch.ops.scan_codes import _check
 # Bound on the elements of one (clusters, qcap, cap) f32 block of the plain
 # version (256 MB).
 _REF_BLOCK_ELEMS = 1 << 26
-# Rows per tile of the CUDA kernel: spans and caps must be multiples of it.
+# Caps must be multiples of this: the CUDA kernel's 128-row tiles end in
+# half a tile where cap is not a multiple of 128.
 KERNEL_TILE_ROWS = 64
 
 

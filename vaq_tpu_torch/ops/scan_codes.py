@@ -345,8 +345,9 @@ def _select_lowest(scores: torch.Tensor, k: int
     """The k smallest entries along dim 1, ascending, ties to the lower
     position: (values, positions int64), the order ``jax.lax.top_k(−x)``
     gives; ``torch.topk`` picks another set among equal scores. Every
-    selection of the port but the decoded tier's running merge
-    (``distances.merge_topk``) goes through here.
+    selection of the port goes through here, the running merges of the
+    decoded tier and of ``exact_search`` where a cheaper ``torch.topk``
+    could not be shown to keep JAX's set (``distances.running_lowest``).
 
     f32 scores are compared as JAX compares them, in IEEE total order (−0
     below +0): their bits, negative floats flipped, as int32. Up to

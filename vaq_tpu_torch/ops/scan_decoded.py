@@ -11,12 +11,13 @@ over-fetches ``max(2k, k+16)`` candidates and rescores them exactly in f32.
 
 No hand-written kernel sits on this path: it is a plain GEMM plus top-k, as
 the JAX version leaves it to XLA. Where the JAX version takes
-``approx_max_k``, this port takes an exact ``torch.topk`` (the JAX
-``exact=True`` semantics), and it scans in row blocks with a running top-k,
-so the (nq, n) f32 score matrix (2 GB at nq=512, n=1M) never exists whole.
-That running merge (``distances.merge_topk``) may order equal scores unlike
-JAX; the exact rescores select with ``scan_codes._select_lowest``, ties to
-the lower candidate position as ``jax.lax.top_k`` breaks them.
+``approx_max_k``, this port takes an exact top-k (the JAX ``exact=True``
+semantics), and it scans in row blocks with a running top-k, so the (nq, n)
+f32 score matrix (2 GB at nq=512, n=1M) never exists whole. Every selection
+breaks ties as ``jax.lax.top_k`` does, to the lower position: the blocked
+scan through ``distances.lowest_over_blocks`` (each block's ``torch.topk``
+with a margin, one tie-exact sort of what the blocks kept), the exact
+rescores through ``scan_codes._select_lowest``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from vaq_tpu_torch.ops.distances import merge_topk
+from vaq_tpu_torch.ops.distances import lowest_over_blocks
 from vaq_tpu_torch.ops.scan_codes import _select_lowest
 
 # Rows per block of the decode and of the scan: bounds the f32 transients
@@ -68,7 +69,10 @@ def _rescore_exact(qp: torch.Tensor, decoded: torch.Tensor, idx: torch.Tensor,
 def _scan_topk(rows: torch.Tensor, norms: torch.Tensor, q32: torch.Tensor,
                kk: int) -> torch.Tensor:
     """Row ids of the kk best ``2·q·x − ‖x‖²`` scores, scanned in row blocks
-    with a running top-k; −1 where a score is −inf (a tombstoned row).
+    (``distances.lowest_over_blocks`` of the negated scores, ``‖x‖² −
+    2·q·x``: IEEE rounds a − b to −(b − a), so only the sign of a zero score
+    differs), ties to the lower id; −1 where a score is −inf (a tombstoned
+    row).
 
     rows (n, D) bf16 or int8, upcast to f32 per block; q32 (nq, D) f32 with
     bf16 values. JAX asks for f32 GEMM output (preferred_element_type); a
@@ -77,22 +81,16 @@ def _scan_topk(rows: torch.Tensor, norms: torch.Tensor, q32: torch.Tensor,
     products of bf16 (and int8) values are exact in f32, so only the
     summation order differs from JAX."""
     n = rows.shape[0]
-    nq = q32.shape[0]
-    dev = rows.device
-    best_s = torch.full((nq, 0), -torch.inf, device=dev)
-    best_i = torch.full((nq, 0), -1, dtype=torch.int32, device=dev)
-    for start in range(0, n, BLOCK_ROWS):
-        blk = rows[start:start + BLOCK_ROWS].to(torch.float32)
-        score = 2.0 * (q32 @ blk.T) - norms[None, start:start + blk.shape[0]]
-        ids = torch.arange(start, start + blk.shape[0], dtype=torch.int32,
-                           device=dev).expand(nq, -1)
-        # merge_topk keeps the smallest; negate to keep the largest scores
-        neg, best_i = merge_topk(-best_s, best_i, -score, ids,
-                                 min(kk, best_s.shape[1] + blk.shape[0]))
-        best_s = -neg
+
+    def blocks():
+        for start in range(0, n, BLOCK_ROWS):
+            blk = rows[start:start + BLOCK_ROWS].to(torch.float32)
+            yield norms[None, start:start + blk.shape[0]] - 2.0 * (q32 @ blk.T), start
+
+    neg, best_i = lowest_over_blocks(blocks, kk)
     # tombstoned rows carry -inf scores; never let the exact rescore
     # resurrect them
-    return torch.where(torch.isfinite(best_s), best_i, -1)
+    return torch.where(torch.isfinite(neg), best_i, -1)
 
 
 def decoded_scan_topk(
