@@ -26,11 +26,15 @@ as it goes:
    gs = 8) with int8 rows, at d = 96 (the shape of JAX's transposed K6),
    with bf16 rows, with about 51 of the 112 slots occupied (visit 0.1) and
    at qcap = 512 (visit 1.0); K7 at 512 queries × 200 windows of 8 rows, int8 and bf16, d = 128
-   and 96 (K8); K3 (f32 LUT) and K4 (s8 LUT), keys bit-equal to the plain
-   version's, at the FAST path's shape (M = 64, C = 16, 1M rows padded to
-   1,001,472, 512 queries, 256-row windows) and at M = 32, C = 256, 262,144
-   rows, 128 queries, 512-row windows, beside a tensor-core product of the
-   codes' one-hot by the LUT (bf16 ``matmul`` / ``_int_mm``);
+   and 96 (K8); K3 (f32 LUT) and K4 (s8 LUT) at the FAST path's shape
+   (M = 64, C = 16, 1M rows padded to 1,001,472, 512 queries, 256-row
+   windows; the tensor-core form) and at M = 32, C = 256, 262,144 rows, 128
+   queries, 512-row windows (the gather form), beside a tensor-core product
+   of the codes' one-hot by the LUT (bf16 ``matmul`` / ``_int_mm``): K4's
+   keys bit-equal to the plain version's, K3's too where the form adds to
+   nearest, else within K3's packed-key tolerance with winners differing
+   only on tied rows; before them, a probe of how the tensor cores round
+   K3's f32 accumulation;
 4. the codes path at SIFT1M shape, 1M × 128-d,
    ``VAQ256m32min7max8var1,HEAP`` on seeded synthetic data: train, encode,
    search on the decoded and on the codes tier (k = 100), then search 200
@@ -48,12 +52,16 @@ as it goes:
    before and read just after; at visit 1.0 the probe must reach the
    decoded tier's recall within 0.03;
 6. the FAST/LUT path on the same data, ``VAQ256m64min1max4var1,FAST``
-   (``bench.py:603``'s FAST config at d = 128): train, encode,
+   (``bench.py:603``'s FAST config at d = 128): train and encode twice
+   (the two rotations, codebooks and codes must be bit-equal),
    ``search(backend="fast4")`` (K3), ``learn_quantization``, the same search
    again (K4), ``"lut_gather"``, ``"auto"`` (which the route sends to the
    codes tier: K1 must launch, K3/K4 must not), and a fast4 search of 200
-   refined to 100; K3's, K4's and K1's counters are zeroed before their
-   steps and must have moved after them;
+   refined to 100, with a ``torch.profiler`` split of one fast4 batch with
+   each LUT by stage (``fast.lut``, ``fast.scan``, ``fast.select``,
+   ``fast.rescore``, ``fast.topk``) and its busy share of the unprofiled
+   wall; K3's, K4's and K1's counters are zeroed before their steps and must
+   have moved after them;
 7. one index state searched on the card and through the port's CPU plain
    versions at n = 20k (the decoded and codes tiers, refine, an IVF state
    built on the card and copied to the CPU at d = 128 and d = 96, and a FAST
@@ -152,7 +160,7 @@ def phase_build() -> float:
     dt = time.perf_counter() - t0
     log(f"[build] {path.name} in {dt:.2f} s")
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
             log(f"[build] {line.strip()}")
     return dt
 
@@ -337,13 +345,30 @@ def _check_rescore(gen, d: int, dtype: str) -> dict:
                   err, ms, plain, bound, None)
 
 
-def _check_fast4(rng, shape, int8: bool) -> dict:
-    """K3 (f32 LUT) or K4 (s8 LUT) against its plain version: keys equal
-    bit for bit. The library yardstick multiplies a one-hot of the codes
-    (built outside the timing) by the LUT on the tensor cores: bf16
-    ``matmul`` for K3, ``_int_mm`` for K4. The bound counts that one-hot
-    form, the fastest known (2·nq·n·M·C operations), against the bytes of
-    codes, LUT and keys."""
+def _k3_winners_tie(codes, luts, q_idx, ids_a, ids_b, rtol) -> bool:
+    """Whether rows ``ids_a`` and ``ids_b`` of queries ``q_idx`` have K3
+    sums (bf16 entries, in f64) that agree to ``rtol``."""
+    lut_bf = luts.to(torch.bfloat16).double()
+    sub = torch.arange(codes.shape[1], device=codes.device)
+
+    def sums(ids):
+        return lut_bf[q_idx[:, None], sub[None, :], codes[ids.long()].long()].sum(1)
+
+    a, b = sums(ids_a), sums(ids_b)
+    return bool(torch.all((a - b).abs() <= rtol * b.abs() + 1e-6))
+
+
+def _check_fast4(rng, shape, int8: bool, rounding: str) -> dict:
+    """K3 (f32 LUT) or K4 (s8 LUT) against its plain version, in the form
+    the wrapper's shape rule picks (``scan_codes._fast4_form``). K4's keys,
+    and K3's in the gather form or where the tensor cores add to nearest
+    (``rounding``), must equal the plain version's bit for bit; otherwise
+    K3's scores agree to 1e-5 + 2^(idx_bits − 23) relative and a window's
+    winner differs only where the two rows' sums agree to that in f64. The
+    library yardstick multiplies a one-hot of the codes (built outside the
+    timing) by the LUT on the tensor cores: bf16 ``matmul`` for K3,
+    ``_int_mm`` for K4. The bound counts that one-hot form (2·nq·n·M·C
+    operations) against the bytes of codes, LUT and keys."""
     from vaq_tpu_torch.ops import scan_codes
     dev = torch.device(DEVICE)
     n, m, c, nq, br = shape
@@ -356,13 +381,28 @@ def _check_fast4(rng, shape, int8: bool) -> dict:
     else:
         luts = torch.as_tensor((rng.random((nq, m, c)) * 4.0).astype(np.float32),
                                device=dev)
+    form = scan_codes._fast4_form(m, c, int8, nq, br).kind
     s_k, i_k = scan_codes.fast4_window_scan(codes, luts, br, n_win)
     s_r, i_r = scan_codes.fast4_window_scan_ref(codes, luts, br, n_win)
     torch.cuda.synchronize()
     name = "K4" if int8 else "K3"
     assert s_k.shape == (nq, n_win), (name, s_k.shape)
-    assert torch.equal(s_k, s_r) and torch.equal(i_k, i_r), \
-        f"{name} keys differ from the plain version at {shape}"
+    if int8 or form == "gather" or rounding == "nearest":
+        assert torch.equal(s_k, s_r) and torch.equal(i_k, i_r), \
+            f"{name} keys differ from the plain version at {shape}"
+        check = "keys equal"
+    else:
+        rtol = RTOL_KERNEL + 2.0 ** ((br - 1).bit_length() - 23)
+        torch.testing.assert_close(s_k, s_r, rtol=rtol, atol=1e-6)
+        q_idx, w_idx = torch.nonzero(i_k != i_r, as_tuple=True)
+        ties = len(q_idx)
+        if ties:
+            assert _k3_winners_tie(codes, luts, q_idx, i_k[q_idx, w_idx],
+                                   i_r[q_idx, w_idx], rtol), \
+                f"K3 winners differ beyond a tie at {shape}"
+        check = (f"scores within {rtol:.3g}, {ties} id ties of {i_k.numel()}, "
+                 f"max|Δscore| {float((s_k - s_r).abs().max()):.3g}")
+    err = float((s_k.double() - s_r.double()).abs().max())
     ms = _time_ms(lambda: scan_codes.fast4_window_scan(codes, luts, br, n_win), 10)
     plain = _time_ms(lambda: scan_codes.fast4_window_scan_ref(codes, luts, br, n_win), 3)
     # the one-hot of the codes, (n_pad, M·C), padded rows all zero
@@ -376,17 +416,21 @@ def _check_fast4(rng, shape, int8: bool) -> dict:
         lut_bf = lut_t.to(torch.bfloat16).contiguous()
         library = _time_ms(lambda: torch.matmul(hot, lut_bf), 10)
     del hot
+    ops = 2.0 * nq * n_pad * m * c
     nbytes = n_pad * m + luts.numel() * luts.element_size() + nq * n_win * 4
-    bound = _bound(nbytes, 2.0 * nq * n_pad * m * c, "int8" if int8 else "bf16")
-    log(f"[kernels] {name} fast4_window_scan n={n} M={m} C={c} nq={nq} br={br}: "
-        f"keys equal, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"{'_int_mm' if int8 else 'bf16 matmul'} of the one-hot {library:.3f} ms, "
-        f"bound {bound[0]:.4f} ms ({bound[1]})")
-    return _entry("fast4_window_scan" + ("_int8" if int8 else "")
-                  + ("" if c == 16 else f"_c{c}"),
-                  "vaq_tpu_torch/csrc/fast4_window_scan.cu",
-                  "vaq_tpu/ops/scan_pallas.py:" + ("155" if int8 else "123"),
-                  0.0, ms, plain, bound, library)
+    bound = _bound(nbytes, ops, "int8" if int8 else "bf16")
+    log(f"[kernels] {name} fast4_window_scan n={n} M={m} C={c} nq={nq} br={br}, "
+        f"{form} form: {check}, kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} "
+        f"{'TOP' if int8 else 'TFLOP'}/s, {100 * bound[0] / ms:.1f}% of the bound), "
+        f"plain {plain:.3f} ms, {'_int_mm' if int8 else 'bf16 matmul'} of the "
+        f"one-hot {library:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    entry = _entry("fast4_window_scan" + ("_int8" if int8 else "")
+                   + ("" if c == 16 else f"_c{c}"),
+                   "vaq_tpu_torch/csrc/fast4_window_scan.cu",
+                   "vaq_tpu/ops/scan_pallas.py:" + ("155" if int8 else "123"),
+                   err, ms, plain, bound, library)
+    entry["form"] = form
+    return entry
 
 
 def _k1_winners_tie(codes, table, qp, q_idx, ids_a, ids_b, rtol) -> bool:
@@ -583,9 +627,12 @@ def phase_kernels() -> list[dict]:
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
         kernels.append(_check_rescore(gen, d_k, dtype))
         torch.cuda.empty_cache()
+    rounding = scan_codes.k3_accumulation_rounding(dev)
+    log(f"[kernels] K3's tensor-core form: wgmma adds each k step to its f32 "
+        f"accumulator rounding {rounding}")
     for shape in KF_SHAPES:
         for int8 in (False, True):
-            kernels.append(_check_fast4(rng, shape, int8))
+            kernels.append(_check_fast4(rng, shape, int8, rounding))
             torch.cuda.empty_cache()
     return kernels
 
@@ -616,26 +663,6 @@ def _batch_wall_ms(fn, reps: int = 9) -> float:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(walls))
-
-
-def _profile_batch(tag: str, what: str, fn) -> None:
-    """One call of ``fn`` (a 512-query search) under ``torch.profiler``:
-    the device's busy time, its share of the unprofiled batch wall (the
-    profiler slows the host), and the device time by kernel."""
-    wall = _batch_wall_ms(fn)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
-               if ev.device_type == cuda) / 1e3
-    log(f"[{tag}] {what}, one 512-query batch: wall {wall:.3f} ms unprofiled "
-        f"({prof_wall:.3f} ms under the profiler), device busy {busy:.3f} ms "
-        f"({100 * busy / wall:.1f}% of the unprofiled wall); top device ops:\n"
-        + prof.key_averages().table(sort_by="self_device_time_total", row_limit=10))
 
 
 def phase_main_path() -> tuple[dict, dict]:
@@ -675,8 +702,8 @@ def phase_main_path() -> tuple[dict, dict]:
     launches = {"decode_window_scan": scan_codes.decode_window_scan.launches,
                 "decode_rescore": scan_codes.decode_rescore.launches}
     log(f"[main] kernel launches during the main path: {launches}")
-    _profile_batch("main", "codes", lambda: idx.search(queries[:512], 100,
-                                                     backend="codes"))
+    _profile_split("main", "codes", lambda: idx.search(queries[:512], 100,
+                                                     backend="codes"), ())
     # the codes tier at k = 200 takes 64-row windows: K1's third checked shape
     assert idx._codes_block_rows(200) == K1_SHAPES[2][5]
     scan_codes.decode_window_scan.launches = 0
@@ -719,6 +746,27 @@ def _device_split(prof, names) -> tuple[dict, float]:
                       if t0 <= ev.time_range.start < t1), "other")
         out[stage] += ev.time_range.elapsed_us() / 1e3
     return out, sum(out.values())
+
+
+def _profile_split(tag: str, what: str, fn, stages) -> None:
+    """One call of ``fn`` (a 512-query search) under ``torch.profiler``:
+    the device ms inside each of the profiler ranges ``stages`` and the
+    rest, the device's busy time and its share of the unprofiled batch wall
+    (the profiler slows the host), and the device time by kernel."""
+    wall = _batch_wall_ms(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    split, busy = _device_split(prof, stages)
+    log(f"[{tag}] {what}, one 512-query batch: wall {wall:.3f} ms unprofiled "
+        f"({prof_wall:.3f} ms under the profiler), device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f}% of the unprofiled wall); device ms by stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    log(f"[{tag}] top device ops:\n" + prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=12))
 
 
 def _dispatch_counts(idx, queries, k: int) -> tuple[int, int]:
@@ -776,22 +824,9 @@ def phase_ivf_path(ctx: dict) -> dict:
     # the stage split of one 512-query batch at visit 0.1
     idx.ivf.visit = 0.10
     qb = queries[:512]
-    wall = _batch_wall_ms(lambda: idx.search(qb, 100, backend="ivf"))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        idx.search(qb, 100, backend="ivf")
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    stages = ("ivf.probe", "ivf.groupmin", "ivf.merge", "ivf.rescore",
-              "ivf.second_stage")
-    split, busy = _device_split(prof, stages)
-    log(f"[ivf] visit 0.1, one 512-query batch: wall {wall:.3f} ms unprofiled "
-        f"({prof_wall:.3f} ms under the profiler), device busy {busy:.3f} ms "
-        f"({100 * busy / wall:.1f}% of the unprofiled wall); device ms by stage "
-        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-    log("[ivf] top device ops:\n" + prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=12))
+    _profile_split("ivf", "visit 0.1", lambda: idx.search(qb, 100, backend="ivf"),
+                   ("ivf.probe", "ivf.groupmin", "ivf.merge", "ivf.rescore",
+                    "ivf.second_stage"))
 
     d8, l8 = _step("search decoded8 k=100 (first call builds the int8 db)",
                    lambda: idx.search(queries, 100, backend="decoded8"), NQ_MAIN)
@@ -832,6 +867,20 @@ def phase_fast_path(ctx: dict) -> dict:
     _step("train", lambda: idx.train(base), tag="fast")
     log(f"[fast] bits {idx.bits.tolist()}")
     _step("encode", lambda: idx.encode(base), tag="fast")
+    # training is deterministic on the card: a second index from the same
+    # config, data and seed has the same centroids and codes, bit for bit
+    twin = vt.VAQIndex(vt.parse_method_string(FAST_METHOD), device=dev)
+    _step("train again (same config, data and seed)", lambda: twin.train(base),
+          tag="fast")
+    _step("encode again", lambda: twin.encode(base), tag="fast")
+    same = (np.array_equal(twin.eigvecs, idx.eigvecs)
+            and np.array_equal(twin.centroids, idx.centroids)
+            and torch.equal(twin.codes, idx.codes))
+    log(f"[fast] two trainings: rotation, centroids and codes bit-equal: {same}")
+    assert same, "two trainings of one config, data and seed differ"
+    del twin
+    fast_stages = ("fast.lut", "fast.scan", "fast.select", "fast.rescore",
+                   "fast.topk")
 
     counts.update(K3=0, K4=0)
     _step("search fast4, f32 LUT (K3), first call",
@@ -839,6 +888,8 @@ def phase_fast_path(ctx: dict) -> dict:
     _fast_search(idx, queries, gt, "fast4, f32 LUT (K3)", backend="fast4")
     k3 = counts["K3"]
     assert k3 > 0 and counts["K4"] == 0, counts
+    _profile_split("fast", "fast4, f32 LUT (K3)",
+                   lambda: idx.search(queries[:512], 100, backend="fast4"), fast_stages)
 
     _step("learn_quantization(base, 0.1)",
           lambda: idx.learn_quantization(base, 0.1), tag="fast")
@@ -850,6 +901,8 @@ def phase_fast_path(ctx: dict) -> dict:
                  backend="lut_gather")
     k4 = counts["K4"]
     assert k4 > 0 and counts["K3"] == 0, counts
+    _profile_split("fast", "fast4, u8 LUT (K4)",
+                   lambda: idx.search(queries[:512], 100, backend="fast4"), fast_stages)
 
     # "auto" on a quantized FAST index: "lut", which JAX's accelerator rule
     # serves from the codes tier when enough windows form
@@ -865,8 +918,8 @@ def phase_fast_path(ctx: dict) -> dict:
     # K1's second checked shape (C = 16, 128-row windows)
     assert (idx._codes_block_rows(100), int(idx.bits.max())) == \
         (K1_SHAPES[1][5], K1_SHAPES[1][2].bit_length() - 1)
-    _profile_batch("fast", "auto (codes tier)",
-                   lambda: idx.search(queries[:512], 100))
+    _profile_split("fast", "auto (codes tier)",
+                   lambda: idx.search(queries[:512], 100), ())
 
     counts.update(K3=0, K4=0)
     _, cand = _fast_search(idx, queries, gt, "fast4 k=200 (K4)", k=200,

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the FAST window-scan kernels K3 (f32 LUT) and K4 (s8 LUT) of
-``vaq_tpu_torch`` over a grid of query-tile sizes, on one CUDA card.
+"""Time the gather form of the FAST window-scan kernels K3 (f32 LUT) and
+K4 (s8 LUT) of ``vaq_tpu_torch`` over a grid of query-tile sizes, on one
+CUDA card.
 
     python3 scripts/fast4_tile_sweep.py
 
-from the root of the repository. For each shape of ``chip_smoke.py``'s
-kernel phase (M = 64, C = 16, 1M rows, 512 queries, 256-row windows; M = 32,
-C = 256, 262,144 rows, 128 queries, 512-row windows) and each (LUT bytes a
-block stages, queries a tile holds at most), it prints the query tile that
+from the root of the repository. The wrapper's shape rule
+(``scan_codes._fast4_form``) sends wide tables to the gather form; at
+``chip_smoke.py``'s wide shape (M = 32, C = 256, 262,144 rows, 128 queries,
+512-row windows) and each (LUT bytes a block stages, queries a tile holds
+at most), it prints the query tile that
 ``scan_codes._fast4_tile`` picks, the block's shared memory and the
 kernel's mean time by CUDA events; every result must equal the first
 setting's keys bit for bit. ``_FAST4_LUT_BYTES`` and ``_FAST4_MAX_Q_TILE``
@@ -24,7 +26,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from vaq_tpu_torch.ops import scan_codes as sc  # noqa: E402
 
-SHAPES = ((1_000_000, 64, 16, 512, 256), (262_144, 32, 256, 128, 512))
+SHAPES = ((262_144, 32, 256, 128, 512),)
 BUDGETS_KB = (96, 80, 64, 48, 32)
 MAX_Q_TILES = (64, 32, 16, 8)
 
@@ -66,6 +68,7 @@ def main() -> int:
                 sc._FAST4_LUT_BYTES, sc._FAST4_MAX_Q_TILE = budget * 1024, q_max
                 row = []
                 for name, lut in luts.items():
+                    assert sc._fast4_form(m, c, name == "K4", nq, br).kind == "gather"
                     q_tile, smem = sc._fast4_tile(m, c, lut.element_size(), nq, br)
                     out = sc.fast4_window_scan(codes, lut, br, n_win)
                     ref = first.setdefault(name, out)

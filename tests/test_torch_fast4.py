@@ -206,6 +206,84 @@ def test_fast4_tile_fits_the_shared_memory():
         scan_codes._fast4_tile(256, 256, 4, 8, 256)
 
 
+# (M, C, int8, nq) → (form, queries a tile, padded width, padded depth):
+# the FAST shapes take the tensor-core form, wide tables the gather form
+FORM_TABLE = [
+    ((64, 16, False, 512), ("mma", 64, 16, 1024)),     # main FAST shape, K3
+    ((64, 16, True, 512), ("mma", 128, 16, 1024)),     # main FAST shape, K4
+    ((64, 16, False, 70), ("mma", 64, 16, 1024)),      # a ragged query tile
+    ((13, 16, False, 5), ("mma", 64, 16, 256)),        # depth 208 → 4 steps
+    ((13, 16, True, 5), ("mma", 128, 16, 256)),        # depth 208 → 2 groups
+    ((4, 8, True, 3), ("mma", 128, 16, 128)),          # C = 8 pads to 16
+    ((16, 64, False, 40), ("mma", 64, 64, 1024)),
+    ((128, 16, False, 40), ("gather", 8, 0, 0)),       # 256 KB of bf16 LUT
+    ((128, 16, True, 40), ("gather", 32, 0, 0)),       # 256 KB of s8 LUT
+    ((32, 256, False, 128), ("gather", 2, 0, 0)),      # 1 MB a bf16 tile
+    ((32, 256, True, 128), ("gather", 8, 0, 0)),
+]
+
+
+@pytest.mark.parametrize("args,want", FORM_TABLE)
+def test_fast4_form_follows_the_shape(args, want):
+    m, c, int8, nq = args
+    form = scan_codes._fast4_form(m, c, int8, nq, 256)
+    assert (form.kind, form.q_tile, form.c, form.kpad) == want
+    assert form.smem <= scan_codes._SMEM_LIMIT
+
+
+def _tile_element(tiles, form, nq_pad, esz):
+    """(nq_pad, kpad) table read back from the tile bytes through the
+    core-matrix formula of ``_fast4_lut_tiles``' docstring."""
+    q = np.arange(nq_pad)[:, None]
+    kb = np.arange(form.kpad)[None, :] * esz
+    off = ((q // 8) * 8 * form.kpad * esz + (kb // 16) * 128 + (q % 8) * 16
+           + kb % 16)
+    raw = tiles.numpy()
+    if esz == 1:
+        return raw[off].view(np.int8).astype(np.int64)
+    lo, hi = raw[off].astype(np.uint32), raw[off + 1].astype(np.uint32)
+    return ((lo | (hi << 8)) << 16).view(np.float32).astype(np.float64)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("geom", [(300, 64, 16, 70), (200, 13, 16, 5),
+                                  (100, 4, 8, 3), (150, 16, 64, 9)])
+def test_fast4_lut_tiles_one_hot_product_gives_plain_sums(geom, int8):
+    """The tensor-core form's re-laid-out LUT (bf16 rounding, zero padding
+    in width, depth and queries, core-matrix order), multiplied by the
+    one-hot of the codes as the kernel multiplies it, gives the plain
+    version's sums: exactly for s8, and up to summation order for bf16."""
+    n, m, c, nq = geom
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, c, (n, m)).astype(np.uint8)
+    luts = (rng.integers(-128, 128, (nq, m, c)).astype(np.int8) if int8
+            else (rng.random((nq, m, c)) * 4.0).astype(np.float32))
+    form = scan_codes._fast4_form(m, c, int8, nq, 64)
+    assert form.kind == "mma"
+    tiles = scan_codes._fast4_lut_tiles(torch.as_tensor(luts), form)
+    nq_pad = -(-nq // form.q_tile) * form.q_tile
+    esz = 1 if int8 else 2
+    assert tiles.dtype == torch.uint8 and tiles.numel() == nq_pad * form.kpad * esz
+    b = _tile_element(tiles, form, nq_pad, esz)
+    assert not b[nq:].any() and not b[:, m * form.c:].any()   # zero padding
+    onehot = np.zeros((n, form.kpad), np.int64 if int8 else np.float64)
+    onehot[np.arange(n)[:, None], np.arange(m) * form.c + codes] = 1
+    got = onehot @ b[:nq].T                   # (n, nq)
+    tbl = torch.as_tensor(luts)
+    tbl = tbl.to(torch.int32) if int8 else tbl.to(torch.bfloat16).float()
+    want = scan_codes.lut_sums(torch.as_tensor(codes), tbl).numpy().T
+    if int8:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_k3_accumulation_probe_reads_the_plain_version_as_nearest():
+    """The probe's sums are built so that only the last addition rounds; the
+    plain version rounds it to nearest, and the probe says so."""
+    assert scan_codes.k3_accumulation_rounding("cpu") == "nearest"
+
+
 def test_fast4_wrapper_checks_inputs_and_counts_only_launches():
     codes, luts, lut8 = make_fast4(GEOMETRIES[0])
     c, lf, l8 = (torch.as_tensor(codes), torch.as_tensor(luts),

@@ -311,17 +311,71 @@ def test_gather_rescore_kernel_matches_plain(cuda, dtype, shape):
 
 
 # (n, M, C, nq, block_rows) for K3/K4: the main FAST shape cut in rows, the
-# C = 256 shape, windows that span blocks or are not warp-aligned, M with a
-# ragged last code word, one-row windows, C = 8, and several query tiles
+# C = 256 shape (the gather form), windows that span blocks or are not
+# warp-aligned, M with a ragged last code word, one-row windows, C = 8, and
+# several query tiles; then the main shape's widths at 488 queries (the
+# second batch of 1000) and at 129 (two tiles and one query), 512-row
+# windows, 64-row windows whose last data tile is partial, and C = 64 (the
+# tensor-core form's one-hot build for tables wider than 16)
 FAST4_SHAPES = [(100_000, 64, 16, 70, 256), (32_768, 32, 256, 20, 512),
                 (5000, 8, 16, 9, 24), (3000, 13, 16, 5, 16),
-                (2000, 4, 8, 3, 1), (40_000, 64, 16, 600, 512)]
+                (2000, 4, 8, 3, 1), (40_000, 64, 16, 600, 512),
+                (200_000, 64, 16, 488, 256), (200_000, 64, 16, 129, 256),
+                (100_000, 64, 16, 70, 512), (50_037, 64, 16, 70, 64),
+                (20_000, 16, 64, 40, 128)]
+
+
+@pytest.fixture(scope="module")
+def k3_rounding():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run python3 chip_smoke.py on the card")
+    return scan_codes.k3_accumulation_rounding(torch.device("cuda"))
+
+
+def _k3_sums64(codes, luts, q_idx, rows):
+    """K3's sum in f64 for given (query, row) pairs, over bf16 entries."""
+    lut_bf = luts.to(torch.bfloat16).double()
+    m = codes.shape[1]
+    sub = torch.arange(m, device=codes.device)
+    return lut_bf[q_idx[:, None], sub[None, :], codes[rows.long()].long()].sum(1)
+
+
+def assert_k3_matches(codes, luts, br, got, want):
+    """K3 against its plain version where the tensor cores do not add to
+    nearest: scores within 1e-5 + 2^(idx_bits − 23) relative (the rule the
+    port holds K3 to against JAX), and winners that differ only where the
+    two rows' sums agree to that in f64."""
+    (s_k, i_k), (s_r, i_r) = got, want
+    rtol = 1e-5 + 2.0 ** ((br - 1).bit_length() - 23)
+    torch.testing.assert_close(s_k, s_r, rtol=rtol, atol=1e-6)
+    q_idx, w_idx = torch.nonzero(i_k != i_r, as_tuple=True)
+    if len(q_idx):
+        a = _k3_sums64(codes, luts, q_idx, i_k[q_idx, w_idx])
+        b = _k3_sums64(codes, luts, q_idx, i_r[q_idx, w_idx])
+        torch.testing.assert_close(a, b, rtol=rtol, atol=1e-6)
+    assert len(q_idx) <= 0.02 * i_k.numel()
+
+
+@pytest.mark.gpu
+def test_wgmma_f32_accumulation_probe(cuda, k3_rounding):
+    """The probe reads one of the known roundings; where it is to nearest,
+    K3's keys on the probe equal the plain version's bit for bit."""
+    print(f"wgmma f32 accumulation: {k3_rounding}")
+    assert k3_rounding in ("nearest", "toward zero", "upward"), k3_rounding
+    if k3_rounding == "nearest":
+        u = 2.0 ** -23
+        luts = torch.zeros((1, 5, 16), device=cuda)
+        luts[0, :, 0] = torch.tensor([1.0, 255 / 256, 255 * 2.0 ** -16,
+                                      127 * u, 0.75 * u])
+        codes = torch.zeros((64, 5), dtype=torch.uint8, device=cuda)
+        assert torch.equal(scan_codes.fast4_window_scan(codes, luts, 64)[0],
+                           scan_codes.fast4_window_scan_ref(codes, luts, 64)[0])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("shape", FAST4_SHAPES)
-def test_fast4_window_scan_kernel_matches_plain(cuda, shape, int8):
+def test_fast4_window_scan_kernel_matches_plain(cuda, k3_rounding, shape, int8):
     n, m, c, nq, br = shape
     rng = np.random.default_rng(7)
     codes = torch.as_tensor(rng.integers(0, c, (n, m)).astype(np.uint8),
@@ -340,4 +394,8 @@ def test_fast4_window_scan_kernel_matches_plain(cuda, shape, int8):
         **before, kernel: before[kernel] + 1}
     s_r, i_r = scan_codes.fast4_window_scan_ref(codes, luts, br, n_win)
     assert s_k.dtype == (torch.int32 if int8 else torch.float32)
-    assert torch.equal(s_k, s_r) and torch.equal(i_k, i_r)
+    form = scan_codes._fast4_form(m, c, int8, nq, br).kind
+    if int8 or form == "gather" or k3_rounding == "nearest":
+        assert torch.equal(s_k, s_r) and torch.equal(i_k, i_r)
+    else:
+        assert_k3_matches(codes, luts, br, (s_k, i_k), (s_r, i_r))

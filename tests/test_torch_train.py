@@ -121,6 +121,26 @@ def test_fit_matches_jax():
     assert (at.numpy() == aj).mean() >= 0.999
 
 
+def test_fit_many_twice_is_bit_equal():
+    """The Lloyd update is a one-hot matmul, not a scatter-add: two fits of
+    one seed give the same centroids bit for bit."""
+    xs = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (2, 3000, 4)).astype(np.float32))
+    a = kmeans.fit_many(xs, 32, iters=5, seed=7)
+    b = kmeans.fit_many(xs, 32, iters=5, seed=7)
+    assert torch.equal(a, b)
+
+
+def test_lloyd_update_in_row_chunks_matches_jax(monkeypatch):
+    """Row chunks of 256 (of 2000 rows, the last one ragged): their partial
+    sums and counts add up to JAX's one-hot update."""
+    monkeypatch.setattr(kmeans, "_BLOCK_ELEMS", 1)
+    xs = np.random.default_rng(5).standard_normal((3, 2000, 4)).astype(np.float32)
+    cj = jkmeans.fit_many(jnp.asarray(xs), 16, iters=3, seed=11)
+    ct = kmeans.fit_many(torch.as_tensor(xs), 16, iters=3, seed=11)
+    np.testing.assert_allclose(ct.numpy(), cj, rtol=1e-5, atol=1e-5)
+
+
 def test_lloyd_empty_cluster_keeps_centroid():
     x = torch.tensor([[0.0, 0.0], [0.1, 0.0], [5.0, 5.0]])
     c0 = torch.tensor([[0.0, 0.0], [5.0, 5.0], [100.0, 100.0]])

@@ -43,9 +43,9 @@ _SIGNATURES = {
     # q, w, rows, rows_int8, n_blk, wblk, nq, m, gs, d, out, stream
     "vaq_gather_rescore": (_P, _P, _P, _I, _L, _P, _I, _I, _I, _I, _P, _P),
     # codes, n_rows, m, lut, lut_int8, nq, c, block_rows, idx_bits, n_win,
-    # q_tile, smem, keys, stream
+    # q_tile, smem, tiles, kpad, keys, stream
     "vaq_fast4_window_scan": (_P, _L, _I, _P, _I, _I, _I, _I, _I, _L, _I, _I,
-                              _P, _P),
+                              _P, _I, _P, _P),
 }
 
 

@@ -5,7 +5,7 @@ The counterpart of ``vaq_tpu/kmeans.py:33-190`` (reference
 One Lloyd iteration is
 
     assignment:  argmin_c ( ‖x‖² − 2·x·Cᵀ + ‖c‖² )   — one batched f32 matmul
-    update:      C ← Σ_{x→c} x / count_c              — one scatter-add
+    update:      C ← (onehot(assign)ᵀ · X) / count_c  — batched f32 matmuls
 
 run for a fixed iteration count (the reference uses 25). JAX's ``vmap`` over
 subspaces is the leading batch dimension G here. Empty clusters keep their
@@ -13,10 +13,14 @@ previous centroid (arma behaviour). Inits are k distinct rows drawn by numpy
 from the seed, exactly as the JAX version draws them, so both packages start
 from the same centroids.
 
-Results drift from the JAX version's in the last bits: the distance matmul
-sums in another order, and ``index_add_`` on a CUDA tensor adds with atomics
-in no fixed order. Near-equidistant points can then change cluster, and the
-tests compare training through statistics.
+The update is JAX's one-hot product (``vaq_tpu/kmeans.py:57-85``), taken in
+the same row chunks as the assignment so that the (G, rows, k) one-hot stays
+within ``_BLOCK_ELEMS``; the chunks' partial sums are added in row order.
+Every step is a matmul, a scatter of ones or an integer count, none of which
+adds floats in a varying order, so one seed gives one state on the card from
+run to run. Results still drift from the JAX version's in the last bits: the
+matmuls sum in another order. Near-equidistant points can then change
+cluster, and the tests compare training through statistics.
 """
 
 from __future__ import annotations
@@ -59,14 +63,24 @@ def assign_clusters(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 def _lloyd_step_many(xs: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     g, n, d = xs.shape
     k = c.shape[1]
-    assign = _assign_many(xs, c)
-    flat = (assign + k * torch.arange(g, device=xs.device)[:, None]).reshape(-1)
-    sums = torch.zeros((g * k, d), dtype=torch.float32, device=xs.device)
-    sums.index_add_(0, flat, xs.reshape(-1, d))
-    counts = torch.bincount(flat, minlength=g * k).to(torch.float32)[:, None]
-    new_c = sums / torch.clamp_min(counts, 1.0)
+    rows = max(256, _BLOCK_ELEMS // max(g * k, 1))
+    sums = torch.zeros((g, k, d), dtype=torch.float32, device=xs.device)
+    counts = torch.zeros((g, k), dtype=torch.int64, device=xs.device)
+    for s in range(0, n, rows):
+        xb = xs[:, s:s + rows]
+        assign = torch.argmin(_pairwise_sq_dists(xb, c), dim=2)
+        # per-cluster sums as onehot(assign)ᵀ · x: a matmul, whose order of
+        # addition is fixed, where a scatter-add would use atomics
+        onehot = torch.zeros((g, xb.shape[1], k), dtype=torch.float32,
+                             device=xs.device)
+        onehot.scatter_(2, assign[:, :, None], 1.0)
+        sums += torch.bmm(onehot.transpose(1, 2), xb)
+        flat = (assign + k * torch.arange(g, device=xs.device)[:, None]).reshape(-1)
+        counts += torch.bincount(flat, minlength=g * k).view(g, k)
+    cnt = counts.to(torch.float32)[:, :, None]
+    new_c = sums / torch.clamp_min(cnt, 1.0)
     # Empty clusters keep the previous centroid.
-    return torch.where(counts > 0, new_c, c.reshape(g * k, d)).reshape(g, k, d)
+    return torch.where(cnt > 0, new_c, c)
 
 
 def lloyd_many(xs: torch.Tensor, c0: torch.Tensor, iters: int = 25

@@ -23,7 +23,9 @@ The FAST search (``backend="fast4"``) is
 1. **K3/K4** ``fast4_window_scan`` (``csrc/fast4_window_scan.cu``): for each
    (query, window) the best row by the LUT sum ``Σ_s lut[q, s, code_s]``,
    over the bf16-rounded f32 LUT (K3) or over the u8-quantized LUT shifted
-   to s8 (K4, the reference's FAST winner semantics);
+   to s8 (K4, the reference's FAST winner semantics); where the query
+   tile's LUT fits in shared memory (``_fast4_form``) as the one-hot ×
+   LUT product on the tensor cores, else as a shared-memory gather;
 2. the top-k windows by :func:`_select_lowest`, which breaks ties toward
    the lower window as ``jax.lax.top_k`` does (K4's integer sums tie often);
 3. the f32 LUT sum of each winner, and a top-k of those, by the same helper.
@@ -36,10 +38,11 @@ Each counts its kernel launches in a plain int attribute, ``launches``
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from vaq_tpu_torch import _build
 from vaq_tpu_torch.device import DEFAULT, resolve
@@ -52,9 +55,9 @@ _REF_CHUNK_ROWS = 65536
 # JAX's grid cells do (scan_pallas.py:76, 661): the padded window count sets
 # kk and so which windows can win.
 W_PER_CELL = 8
-# K3/K4 geometry (csrc/fast4_window_scan.cu): rows per block, one per
-# thread; the shared memory a block gives its query tile's LUT and the
-# queries a tile holds at most (the best of a sweep on an H100,
+# The geometry of K3/K4's gather form (csrc/fast4_window_scan.cu): rows per
+# block, one per thread; the shared memory a block gives its query tile's
+# LUT and the queries a tile holds at most (the best of a sweep on an H100,
 # scripts/fast4_tile_sweep.py: two blocks fit an SM); the queries a thread
 # sums at once; the shared memory a block may have on an H100.
 _FAST4_ROWS = 256
@@ -62,6 +65,16 @@ _FAST4_LUT_BYTES = 64 * 1024
 _FAST4_MAX_Q_TILE = 32
 _FAST4_QJ = 8
 _SMEM_LIMIT = 232448
+# K3/K4's tensor-core form (the same file): queries a tile (the wgmma N) and
+# columns of K a step for K3 (bf16) and K4 (s8), steps built and issued at
+# once, warpgroups a block, code tiles in each warp's ring, and the table
+# width the one-hot steps need at least (narrower tables are zero-padded).
+_MMA_N = {False: 64, True: 128}
+_MMA_KSTEP = {False: 16, True: 32}
+_MMA_GROUP = 4
+_MMA_WGS = {False: 4, True: 3}
+_MMA_RING = 4
+_MMA_MIN_C = 16
 # K1 geometry (csrc/decode_window_scan.cu): rows per tile, queries per
 # sub-tile (a block stages a chunk of whole sub-tiles), bf16 of padding after
 # each staged row, and the most queries a chunk holds.
@@ -454,12 +467,68 @@ def _fast4_tile(m: int, c: int, lut_bytes: int, nq: int, block_rows: int
     return q_tile, smem
 
 
+class Fast4Form(NamedTuple):
+    """How K3/K4 run at one shape: ``"mma"`` (the tensor-core form) with
+    ``q_tile`` queries a tile, the table zero-padded to width ``c`` and depth
+    ``kpad``; or ``"gather"`` with ``_fast4_tile``'s query tile (``c`` and
+    ``kpad`` then unused). ``smem`` is the block's dynamic shared memory."""
+    kind: str
+    q_tile: int
+    smem: int
+    c: int = 0
+    kpad: int = 0
+
+
+def _fast4_form(m: int, c: int, int8: bool, nq: int, block_rows: int
+                ) -> Fast4Form:
+    """The one rule that picks K3/K4's form: the tensor-core form where the
+    query tile's LUT (64 queries of bf16 for K3, 128 of s8 for K4, the width
+    padded to at least 16 and the depth M·C to whole groups of k steps), the
+    warps' code rings and the window minima fit a block's shared memory;
+    the gather form otherwise (a wide table: M = 32, C = 256 takes 1 MB a
+    tile). It is a rule on the shape, not a fallback."""
+    n = _MMA_N[int8]
+    cp = max(c, _MMA_MIN_C)
+    step = _MMA_KSTEP[int8] * _MMA_GROUP
+    kpad = -(-(m * cp) // step) * step
+    ms = (-(-m // 16) * 16) | 16          # a ring row: an odd count of 16 bytes
+    wgs = _MMA_WGS[int8]
+    smem = (n * kpad * (1 if int8 else 2) + wgs * 4 * _MMA_RING * 16 * ms
+            + wgs * 2 * 4 * n * 4)
+    if smem <= _SMEM_LIMIT:
+        return Fast4Form("mma", n, smem, cp, kpad)
+    q_tile, smem = _fast4_tile(m, c, 1 if int8 else 4, nq, block_rows)
+    return Fast4Form("gather", q_tile, smem)
+
+
+def _fast4_lut_tiles(luts: torch.Tensor, form: Fast4Form) -> torch.Tensor:
+    """The tensor-core form's B operand: ``luts`` (nq, M, C) as bf16 (K3, the
+    entries rounded as K3 sums them) or s8 (K4), zero-padded to width
+    ``form.c``, depth ``form.kpad`` and a whole number of ``form.q_tile``-query
+    tiles, in K-major core-matrix order: element (q, k) at byte
+    (q // 8)·8·kpad·e + (k·e // 16)·128 + (q % 8)·16 + k·e % 16, e its size
+    in bytes, so that each query tile is one contiguous block the kernel
+    copies as it is. Returns the flat bytes (uint8)."""
+    nq, m, c = luts.shape
+    int8 = luts.dtype == torch.int8
+    t = luts if int8 else luts.to(torch.bfloat16)
+    t = torch.nn.functional.pad(t, (0, form.c - c)).reshape(nq, m * form.c)
+    nq_pad = -(-nq // form.q_tile) * form.q_tile
+    t = torch.nn.functional.pad(t, (0, form.kpad - m * form.c, 0, nq_pad - nq))
+    per16 = 16 if int8 else 8                 # elements in 16 bytes
+    t = t.view(nq_pad // 8, 8, form.kpad // per16, per16).permute(0, 2, 1, 3)
+    return t.contiguous().view(torch.uint8).reshape(-1)
+
+
 def fast4_window_scan_ref(codes: torch.Tensor, luts: torch.Tensor,
                           block_rows: int, n_win: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3/K4, same arguments and result. K3 adds
-    the bf16-rounded entries in f32 in subspace order, as the kernel does,
-    so the two give the same keys bit for bit; K4 sums in int32."""
+    the bf16-rounded entries in f32 in subspace order, rounding each
+    addition to nearest, as the kernel's gather form does, so the two give
+    the same keys bit for bit; the tensor-core form adds in the same order
+    with the tensor cores' rounding (``k3_accumulation_rounding``). K4 sums
+    in int32, exactly as both forms do."""
     n_win, int8 = _check_fast4(codes, luts, block_rows, n_win)
     n = codes.shape[0]
     nq = luts.shape[0]
@@ -511,14 +580,18 @@ def fast4_window_scan(codes: torch.Tensor, luts: torch.Tensor,
         raise ValueError(f"fast4_window_scan runs on cpu or cuda, not {dev}")
     n, m = codes.shape
     nq, _, c = luts.shape
-    q_tile, smem = _fast4_tile(m, c, 1 if int8 else 4, nq, block_rows)
+    form = _fast4_form(m, c, int8, nq, block_rows)
     keys = torch.full((nq, n_win), _INT32_MAX, dtype=torch.int32, device=dev)
     if nq and n_win:
         with torch.cuda.device(dev):
+            tiles = (_fast4_lut_tiles(luts, form) if form.kind == "mma"
+                     else None)
             lib = _build.library()
             err = lib.vaq_fast4_window_scan(
-                codes.data_ptr(), n, m, luts.data_ptr(), int(int8), nq, c,
-                block_rows, _idx_bits(block_rows), n_win, q_tile, smem,
+                codes.data_ptr(), n, m, luts.data_ptr(), int(int8), nq,
+                form.c or c, block_rows, _idx_bits(block_rows), n_win,
+                form.q_tile, form.smem,
+                None if tiles is None else tiles.data_ptr(), form.kpad,
                 keys.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _build.check_launch(err, "fast4_window_scan")
         fast4_window_scan.launches["K4" if int8 else "K3"] += 1
@@ -527,6 +600,29 @@ def fast4_window_scan(codes: torch.Tensor, luts: torch.Tensor,
 
 # one wrapper, two kernels: a count for each
 fast4_window_scan.launches = {"K3": 0, "K4": 0}
+
+
+def k3_accumulation_rounding(device) -> str:
+    """How K3's tensor-core form adds a k step's product to its f32
+    accumulator, read through K3 itself on ``device`` (a CUDA device): two
+    queries over five subspaces whose first four entries sum exactly to
+    2 − 2⁻²³ and whose fifth adds 0.75·2⁻²³ (query 0) or 0.25·2⁻²³ (query
+    1), in one 64-row window of rows all code 0. To nearest the sums are 2
+    and 2 − 2⁻²³; toward zero 2 − 2⁻²³ twice; upward 2 twice (the packed
+    key's index bits lie below the last place either way). Returns
+    "nearest", "toward zero", "upward" or "other [...]". Its launch counts
+    as one of K3's."""
+    u = 2.0 ** -23
+    head = [1.0, 255 / 256, 255 * 2.0 ** -16, 127 * u]
+    luts = torch.zeros((2, 5, 16))
+    luts[0, :, 0] = torch.tensor(head + [0.75 * u])
+    luts[1, :, 0] = torch.tensor(head + [0.25 * u])
+    codes = torch.zeros((64, 5), dtype=torch.uint8, device=device)
+    assert _fast4_form(5, 16, False, 2, 64).kind == "mma"
+    s, _ = fast4_window_scan(codes, luts.to(device), 64)
+    got = tuple(float(v) == 2.0 for v in s[:, 0].cpu())
+    return {(True, False): "nearest", (False, False): "toward zero",
+            (True, True): "upward"}.get(got, f"other {s[:, 0].tolist()}")
 
 
 def fast4_scan_topk(codes: torch.Tensor, luts: torch.Tensor, k: int,
@@ -543,30 +639,36 @@ def fast4_scan_topk(codes: torch.Tensor, luts: torch.Tensor, k: int,
     never return. The rows are padded to a multiple of 8·``block_rows`` as
     JAX pads them (scan_pallas.py:636-701): padded rows count as code 0 and
     a window whose best row is padding carries no candidate. Both selections
-    break ties toward the lower position, as JAX's ``top_k`` does. Returns
+    break ties toward the lower position, as JAX's ``top_k`` does. The
+    stages run in profiler ranges ``fast.scan``, ``fast.select``,
+    ``fast.rescore`` and ``fast.topk``. Returns
     (sq_dists (nq, k) f32 ascending, labels (nq, k) int32); −1 / +inf fill
     missing entries.
     """
     n = codes.shape[0]
     n_valid = n if n_valid is None else int(n_valid)
     n_win = (n + (-n) % (W_PER_CELL * block_rows)) // block_rows
-    scan_luts = luts if luts8 is None else \
-        (luts8.to(torch.int16) - 128).to(torch.int8)
-    scores, ids = fast4_window_scan(codes, scan_luts, block_rows, n_win)
-    invalid = ids >= n_valid
-    big = _INT32_MAX if scores.dtype == torch.int32 else torch.inf
-    scores = torch.where(invalid, big, scores)
-    kk = min(k, n_win)
-    _, pos = _select_lowest(scores, kk)
-    top_ids = torch.where(torch.gather(invalid, 1, pos), -1,
-                          torch.gather(ids, 1, pos))
-    rows = top_ids.clamp(0, max(n - 1, 0)).to(torch.int64)
-    cand = codes[rows].to(torch.int64).transpose(1, 2)     # (nq, M, kk)
-    d2 = torch.gather(luts, 2, cand).sum(dim=1)
-    d2 = torch.where((top_ids >= 0) & (top_ids < n_valid), d2, torch.inf)
-    if kk < k:
-        d2 = torch.nn.functional.pad(d2, (0, k - kk), value=torch.inf)
-        top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
-    top, pos2 = _select_lowest(d2, k)
-    out_ids = torch.gather(top_ids, 1, pos2)
-    return top, torch.where(torch.isfinite(top), out_ids, -1)
+    with record_function("fast.scan"):
+        scan_luts = luts if luts8 is None else \
+            (luts8.to(torch.int16) - 128).to(torch.int8)
+        scores, ids = fast4_window_scan(codes, scan_luts, block_rows, n_win)
+    with record_function("fast.select"):
+        invalid = ids >= n_valid
+        big = _INT32_MAX if scores.dtype == torch.int32 else torch.inf
+        scores = torch.where(invalid, big, scores)
+        kk = min(k, n_win)
+        _, pos = _select_lowest(scores, kk)
+        top_ids = torch.where(torch.gather(invalid, 1, pos), -1,
+                              torch.gather(ids, 1, pos))
+    with record_function("fast.rescore"):
+        rows = top_ids.clamp(0, max(n - 1, 0)).to(torch.int64)
+        cand = codes[rows].to(torch.int64).transpose(1, 2)     # (nq, M, kk)
+        d2 = torch.gather(luts, 2, cand).sum(dim=1)
+        d2 = torch.where((top_ids >= 0) & (top_ids < n_valid), d2, torch.inf)
+    with record_function("fast.topk"):
+        if kk < k:
+            d2 = torch.nn.functional.pad(d2, (0, k - kk), value=torch.inf)
+            top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
+        top, pos2 = _select_lowest(d2, k)
+        out_ids = torch.gather(top_ids, 1, pos2)
+        return top, torch.where(torch.isfinite(top), out_ids, -1)

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from vaq_tpu_torch import bitalloc, io, kmeans, pca, rng
 from vaq_tpu_torch.config import SearchMethod, VAQConfig
@@ -627,24 +628,26 @@ class VAQIndex:
                     quantized: bool, block_rows: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One query batch down a LUT route of :func:`_lut_route`."""
-        qp = pca.project(qb, self._eigvecs_device())
         if route == "lut_codes":
+            qp = pca.project(qb, self._eigvecs_device())
             dec_table, dec_rows = self._codes_tier()
             return scan_codes.decode_scan_topk(
                 self.codes, dec_table, dec_rows, qp, k,
                 block_rows=self._codes_block_rows(k))
-        luts, lut8 = self._search_luts(qp, quantized)
+        with record_function("fast.lut"):  # projection, LUTs, quantization
+            qp = pca.project(qb, self._eigvecs_device())
+            luts, lut8 = self._search_luts(qp, quantized)
+            padc = 16 - luts.shape[2]
+            if route != "lut_gather" and padc > 0:
+                # max_bits < 4: pad the tables to C = 16 with zeros, never
+                # inf (JAX's one-hot matmul turned 0·inf into NaN); codes
+                # stay < 2^bits, so the padded entries are never read
+                luts = torch.nn.functional.pad(luts, (0, padc))
+                if lut8 is not None:
+                    lut8 = torch.nn.functional.pad(lut8, (0, padc))
         if route == "lut_gather":
             return scan_lut.adc_scan_topk(self.codes, luts, k,
                                           block_rows=block_rows)
-        padc = 16 - luts.shape[2]
-        if padc > 0:
-            # max_bits < 4: pad the tables to C = 16 with zeros, never inf
-            # (JAX's one-hot matmul turned 0·inf into NaN); codes stay
-            # < 2^bits, so the padded entries are never read
-            luts = torch.nn.functional.pad(luts, (0, padc))
-            if lut8 is not None:
-                lut8 = torch.nn.functional.pad(lut8, (0, padc))
         return scan_codes.fast4_scan_topk(
             self.codes, luts, k,
             block_rows=_fast4_block_rows(self.n_rows, k), luts8=lut8)
