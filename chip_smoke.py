@@ -335,8 +335,9 @@ def _check_rescore(gen, d: int, dtype: str) -> dict:
               + wblk.numel() * 4 + got.numel() * 4)
     bound = _bound(nbytes, 4.0 * gathered, "bf16")
     log(f"[kernels] K7 gather_rescore d={d} {dtype} rows: max|Δ| {err:.3g}, "
-        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bound[0]:.4f} ms "
-        f"({bound[1]})")
+        f"kernel {ms:.4f} ms ({nbytes / (ms * 1e6):.0f} GB/s, "
+        f"{100 * bound[0] / ms:.1f}% of the bound), plain {plain:.3f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
     k8 = d % 128 != 0
     return _entry("gather_rescore" + (f"_d{d}" if k8 else "")
                   + ("" if dtype == "int8" else "_bf16"),
@@ -605,10 +606,11 @@ def phase_kernels() -> list[dict]:
     k2_ms = _time_ms(lambda: scan_codes.decode_rescore(codes, cand, rows, qp), 20)
     k2_plain = _time_ms(lambda: scan_codes.decode_rescore_ref(codes, cand, rows, qp), 5)
     n_cand = KC_NQ * KC_KK
-    k2_bound = _bound(n_cand * (KC_M + 4 + 4) + rows.numel() * 4 + qp.numel() * 4,
-                      3.0 * n_cand * d, "f32")
-    log(f"[kernels] K2 decode_rescore: max|Δ| {k2_err:.3g}, kernel {k2_ms:.3f} ms, "
-        f"plain {k2_plain:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    k2_bytes = n_cand * (KC_M + 4 + 4) + rows.numel() * 4 + qp.numel() * 4
+    k2_bound = _bound(k2_bytes, 3.0 * n_cand * d, "f32")
+    log(f"[kernels] K2 decode_rescore: max|Δ| {k2_err:.3g}, kernel {k2_ms:.4f} ms "
+        f"({k2_bytes / (k2_ms * 1e6):.0f} GB/s, {100 * k2_bound[0] / k2_ms:.1f}% of the "
+        f"bound), plain {k2_plain:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     del codes, cand
     kernels.append(
         _entry("decode_rescore", "vaq_tpu_torch/csrc/decode_rescore.cu",

@@ -117,19 +117,34 @@ def test_decode_window_scan_kernel_matches_plain(cuda, geom):
                          i_r.cpu(), br)
 
 
+# (M, C, L, n) for K2: K1_CASES' geometries — GEOMETRIES, d = 30 (not a
+# multiple of 4), d = 512 at L = 1 and at L = 4, the FAST "auto" shape
+# (C = 16, L = 2) and the main shape (M = 32, C = 256)
+K2_GEOMETRIES = [g[:4] for g in GEOMETRIES] + [
+    (6, 16, 5, 3000), (512, 4, 1, 2000), (128, 16, 4, 3000),
+    (64, 16, 2, 100_000), (32, 256, 4, 100_000)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("geom", GEOMETRIES)
-def test_decode_rescore_kernel_matches_plain(cuda, geom):
-    cents, codes, qp = make_inputs(geom, nq=9)
+@pytest.mark.parametrize("kk", [200, 37])   # the path's 2k, and a ragged one
+@pytest.mark.parametrize("geom", K2_GEOMETRIES)
+def test_decode_rescore_kernel_matches_plain(cuda, geom, kk):
+    cents, codes, qp = make_inputs(geom + (1,), nq=9)
+    n = geom[3]
     rng = np.random.default_rng(1)
-    cand = rng.integers(-1, geom[3], (9, 40)).astype(np.int32)
+    cand = rng.integers(0, n, (9, kk)).astype(np.int32)
+    cand[0, 0], cand[3, 5], cand[-1, -1] = -1, n, n + 7   # +inf
     args = (torch.as_tensor(codes, device=cuda),
             torch.as_tensor(cand, device=cuda),
             scan_codes.build_decode_rows(cents, cuda),
             torch.as_tensor(qp, device=cuda))
+    before = scan_codes.decode_rescore.launches
     got = scan_codes.decode_rescore(*args)
     torch.cuda.synchronize()
+    assert scan_codes.decode_rescore.launches == before + 1
     ref = scan_codes.decode_rescore_ref(*args)
+    bad = (cand < 0) | (cand >= n)
+    assert torch.isinf(got.cpu()[torch.as_tensor(bad)]).all()
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
 
 
@@ -283,9 +298,17 @@ def test_groupmin_window_scan_kernel_partial_slots(cuda, dtype, shape):
                         groupmin_term_scale(qsl, rows, w, ncl, cap, gs))
 
 
-# (nq, m, gs, d, nblk), tests/test_rescore_pallas.py:39-44 and d = 96 (K8)
+# (nq, m, gs, d, nblk), tests/test_rescore_pallas.py:39-44 and d = 96 (K8);
+# then the path's shape cut in queries and rows, d = 960 (GIST) and d =
+# 2048 (bf16 rows in two column passes), windows longer than one ring slot
+# (gs = 128, and gs = 24 at d = 960: 16-64 KB windows in 8 KB chunks), one
+# query, and more windows than the buckets hold (m > nblk: every query
+# repeats window ids)
 RESCORE_SHAPES = [(16, 20, 16, 128, 64), (8, 20, 64, 128, 32),
-                  (5, 6, 8, 128, 16), (32, 4, 256, 96, 8), (7, 9, 8, 96, 30)]
+                  (5, 6, 8, 128, 16), (32, 4, 256, 96, 8), (7, 9, 8, 96, 30),
+                  (64, 200, 8, 128, 4096), (6, 12, 8, 960, 40),
+                  (2, 6, 8, 2048, 5), (3, 5, 128, 128, 12),
+                  (2, 3, 24, 960, 4), (1, 50, 8, 128, 64), (4, 40, 8, 128, 8)]
 
 
 @pytest.mark.gpu
@@ -294,6 +317,8 @@ RESCORE_SHAPES = [(16, 20, 16, 128, 64), (8, 20, 64, 128, 32),
 def test_gather_rescore_kernel_matches_plain(cuda, dtype, shape):
     nq, m, gs, d, nblk = shape
     q, w, rows, wblk = make_rescore_inputs(nq, m, gs, d, nblk, dtype)
+    if m > nblk:
+        assert all(len(np.unique(r)) < m for r in wblk)   # duplicates
     wblk[0, 0], wblk[-1, -1] = -1, nblk        # out of range: NaN
     args = (torch.as_tensor(q, device=cuda), torch.as_tensor(w, device=cuda),
             to_rows(rows, cuda), torch.as_tensor(wblk, device=cuda), gs)
