@@ -5,11 +5,12 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``, one
-``nvcc`` per source, all at once) and runs seven phases, printing progress
+``nvcc`` per source, all at once) and runs ten phases, printing progress
 as it goes:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc
-   versions;
+   versions, and whether the native host module (``vaq_tpu_torch/native``)
+   built;
 2. build of the kernels, timed;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, timed with CUDA events after a warm-up, beside its bound
@@ -51,7 +52,18 @@ as it goes:
    split of one visit-0.1 batch by stage, and K5/K7's counters zeroed just
    before and read just after; at visit 1.0 the probe must reach the
    decoded tier's recall within 0.03;
-6. the FAST/LUT path on the same data, ``VAQ256m64min1max4var1,FAST``
+6. ``[crud]``, the same index and probe state mutated: ``add`` of 10,000
+   rows of the base's own mixture, ``delete`` of 10,000 ids (the first 100
+   queries' top-1 among them), then searches on the decoded, int8 and codes
+   tiers (K1/K2's counters zeroed before, read after) and the probe at
+   visit 0.1 (K5/K7's), each tier's recall against exact groundtruth over
+   the live rows; no tier may return a deleted row, 256 added rows searched
+   as queries must be their own top-1 on the decoded tier, the probe must
+   never return an added row (its buckets predate the add, as in JAX), and
+   the poisoned slots must be the deleted rows the buckets held; then the
+   reference-format artifacts round trip (codes and centroids equal) and
+   ``load(with_codes=False)``;
+7. the FAST/LUT path on the same data, ``VAQ256m64min1max4var1,FAST``
    (``bench.py:603``'s FAST config at d = 128): train and encode twice
    (the two rotations, codebooks and codes must be bit-equal),
    ``search(backend="fast4")`` (K3), ``learn_quantization``, the same search
@@ -62,11 +74,19 @@ as it goes:
    ``fast.rescore``, ``fast.topk``) and its busy share of the unprofiled
    wall; K3's, K4's and K1's counters are zeroed before their steps and must
    have moved after them;
-7. one index state searched on the card and through the port's CPU plain
+8. ``[wide]``: ``VAQ256m32min2max13var1,HEAP`` with the hierarchical
+   k-means (up to 13-bit subspaces, int32 codes) on the same 1M rows:
+   train and encode times, the decoded tier's recall and refine 200 → 100
+   against the main groundtruth; the codes tier must refuse it;
+9. ``[cli]``: ``vaq_tpu_torch.cli.demo_vaq.main`` on 100,000 synthetic
+   rows, ``--backend codes --refine 100,200``, its printed lines kept;
+10. one index state searched on the card and through the port's CPU plain
    versions at n = 20k (the decoded and codes tiers, refine, an IVF state
-   built on the card and copied to the CPU at d = 128 and d = 96, and a FAST
-   state through fast4 with and without its LUT quantizers and through
-   ``"lut_gather"``); the answers must agree.
+   built on the card and copied to the CPU at d = 128 and d = 96, that
+   state mutated alike on both by add and delete, the hierarchical and the
+   binary-split configs trained on the card, with the binary split's
+   training time, and a FAST state through fast4 with and without its LUT
+   quantizers and through ``"lut_gather"``); the answers must agree.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are a JSON object of per-kernel numbers and the card's
@@ -76,9 +96,15 @@ two lines are a JSON object of per-kernel numbers and the card's
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -121,6 +147,24 @@ VISITS = (0.25, 0.10, 0.05, 1.0)          # Fig. 11 (ExperimentsParameters.txt:1
 # queries; n pads to 1,001,472 rows) and at one C = 256 shape.
 KF_SHAPES = ((1_000_000, 64, 16, 512, 256), (262_144, 32, 256, 128, 512))
 FAST_METHOD = "VAQ256m64min1max4var1,FAST"   # bench.py:603's FAST config at d = 128
+# [crud]: rows added and ids deleted on the 1M index, and added rows searched
+# as queries
+N_ADD, N_DEL, N_SELF = 10_000, 10_000, 256
+# [wide]: the wide-bits config of WIDEBITS_1M.json (hierarchical k-means up
+# to 13 bits); at 20k also the binary-split k-means on a config with a few
+# 9-bit subspaces: it runs one 2-means a node, ~17 ms each on the card, so
+# 13 bits (~8k nodes a subspace) waits for the level-batched form (ROADMAP
+# queue 1)
+WIDE_METHOD = "VAQ256m32min2max13var1,HEAP"
+BINARY_METHOD = "VAQ96m16min5max9var1,HEAP"
+# [cli]: demo_vaq's flags. At 100k rows the codes tier has windows of
+# 100000 // (64·k) rows, 15 at k = 100 and 7 at k = 200: below 16 rows, so
+# both refines are served by the decoded tier (JAX's rule), not by K1/K2.
+CLI_ARGS = ["--synthetic", "100000", "--method", METHOD, "--refine", "100,200",
+            "--backend", "codes"]
+# The same command under VAQ_TPU_PLATFORM=cpu reads avg_recall 0.5788
+# (refine 100) and 0.8131 (refine 200); the card must come within 0.02.
+CLI_MIN_RECALL = (0.5588, 0.7931)
 # Published H100 SXM peaks (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -144,6 +188,9 @@ def phase_environment() -> str:
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
     log(f"[env] nvcc: {nvcc}")
+    from vaq_tpu_torch import native
+    log(f"[env] native host module: "
+        f"{'loaded' if native.get() is not None else 'not built, numpy paths'}")
     return smi
 
 
@@ -841,6 +888,115 @@ def phase_ivf_path(ctx: dict) -> dict:
     return launches
 
 
+def _live_groundtruth(rows: torch.Tensor, dead: np.ndarray, queries, k: int
+                      ) -> np.ndarray:
+    """Exact top-k ids of ``queries`` over the rows not in ``dead``, on the
+    card, as global ids."""
+    from vaq_tpu_torch.ops import distances
+    live = np.setdiff1d(np.arange(rows.shape[0]), dead)
+    live_dev = torch.as_tensor(live, device=DEVICE)
+    _, i = distances.exact_search(torch.as_tensor(queries, device=DEVICE),
+                                  rows[live_dev], k)
+    return live[i.cpu().numpy()]
+
+
+def phase_crud(ctx: dict) -> dict:
+    """The 1M index and its probe state, mutated: add, delete, every tier
+    searched, the artifacts round trip; returns the tiers' kernel launches
+    (logged apart from the main path's)."""
+    from vaq_tpu_torch import data, metrics
+    from vaq_tpu_torch.ops import probe_scan, rescore, scan_codes
+    import vaq_tpu_torch as vt
+    idx, base, queries = ctx["idx"], ctx["base"], ctx["queries"]
+    dev = torch.device(DEVICE)
+    n0 = idx.n_rows
+    # rows of the base's own mixture: the generator with the base's seed
+    # draws the same centres and mixing, and fresh noise for 10k rows (rows
+    # of another seed come from another mixture, which the trained
+    # codebooks do not cover, and would not find themselves)
+    added, _ = data.make_anisotropic_gaussian(N_ADD, D_MAIN, 0, seed=SEED)
+    ids = _step(f"add {N_ADD} rows", lambda: idx.add(added), tag="crud")
+    assert ids[0] == n0 and len(ids) == N_ADD and idx.n_rows == n0 + N_ADD
+    _, top1 = idx.search(queries[:100], 1, backend="decoded")
+    rng = np.random.default_rng(SEED)
+    others = rng.permutation(n0 + N_ADD)
+    others = others[~np.isin(others, np.concatenate([top1[:, 0],
+                                                     ids[:N_SELF]]))]
+    dead = np.unique(top1[:, 0])
+    dead = np.concatenate([dead, others[:N_DEL - len(dead)]])
+    st = idx.ivf.state
+    held = int(torch.isin(st.bucket_ids, torch.as_tensor(dead, device=dev)).sum())
+    dead_slots = int((st.bucket_ids == -1).sum())
+    _step(f"delete {N_DEL} ids", lambda: idx.delete(dead), tag="crud")
+    poisoned = int((st.bucket_ids == -1).sum()) - dead_slots
+    log(f"[crud] poisoned slots {poisoned}, deleted rows the buckets held "
+        f"{held} (of {N_DEL}; {int((dead >= n0).sum())} were added rows)")
+    assert poisoned == held == int((dead < n0).sum())
+
+    rows = torch.cat([torch.as_tensor(base, device=dev),
+                      torch.as_tensor(added, device=dev)])
+    gt = _step("groundtruth@100 over the live rows (exact_search)",
+               lambda: _live_groundtruth(rows, dead, queries, 100), NQ_MAIN,
+               "crud")
+    del rows
+    idx.ivf.visit = 0.10
+    counters = {"decoded": (), "decoded8": (),
+                "codes": (scan_codes.decode_window_scan,
+                          scan_codes.decode_rescore),
+                "ivf": (probe_scan.groupmin_window_scan,
+                        rescore.gather_rescore)}
+    launches, labels = {}, {}
+    for tier, kernels in counters.items():
+        _step(f"search {tier} k=100 (first call)",
+              lambda: idx.search(queries, 100, backend=tier), NQ_MAIN, "crud")
+        for kern in kernels:
+            kern.launches = 0
+        d, lab = _step(f"search {tier} k=100",
+                       lambda: idx.search(queries, 100, backend=tier),
+                       NQ_MAIN, "crud")
+        launches.update({f"{kern.__name__} ({tier})": kern.launches
+                         for kern in kernels})
+        assert lab.shape == (NQ_MAIN, 100) and (lab >= 0).all(), tier
+        assert np.isfinite(d).all(), tier
+        assert not np.isin(lab, dead).any(), f"{tier} returned a deleted row"
+        labels[tier] = lab
+        log(f"[crud] {tier}: avg_recall@100 {metrics.avg_recall(lab, gt, 100):.4f} "
+            f"over the live rows")
+    log(f"[crud] kernel launches: {launches}")
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the mutated index"
+    assert (labels["ivf"] < n0).all(), "the probe returned an added row"
+    _, own = idx.search(added[:N_SELF], 10, backend="decoded")
+    hits = float((own[:, 0] == ids[:N_SELF]).mean())
+    _, own_ivf = idx.search(added[:N_SELF], 10, backend="ivf")
+    log(f"[crud] added rows as queries: own top-1 on the decoded tier "
+        f"{hits:.4f}; probe answers among added rows "
+        f"{int((own_ivf >= n0).sum())}")
+    assert hits == 1.0, hits
+    assert (own_ivf < n0).all(), "the probe returned an added row"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cp, kp = os.path.join(tmp, "centroids.bin"), os.path.join(tmp, "codes.bin")
+        _step("export_reference_artifacts",
+              lambda: idx.export_reference_artifacts(cp, kp), tag="crud")
+        back = _step("from_reference_artifacts (rotation retrained)",
+                     lambda: vt.VAQIndex.from_reference_artifacts(
+                         idx.config, cp, kp, base, device=dev), tag="crud")
+        assert torch.equal(back.codes, idx.codes), "codes differ"
+        assert np.array_equal(back.centroids, idx.centroids), "centroids differ"
+        del back
+        path = os.path.join(tmp, "index.npz")
+        _step("save", lambda: idx.save(path), tag="crud")
+        bare = _step("load(with_codes=False)",
+                     lambda: vt.VAQIndex.load(path, device=dev, with_codes=False),
+                     tag="crud")
+        assert bare.codes is None and bare.n_rows == idx.n_rows
+        assert np.array_equal(bare.deleted_ids, idx.deleted_ids)
+    log("[crud] artifacts round trip: codes and centroids equal; "
+        "load(with_codes=False) holds no codes")
+    return launches
+
+
 def _fast_search(idx, queries, gt, what: str, k: int = 100, **kw):
     """One timed FAST-path search (after a first call that is not timed
     apart); logs avg_recall@100 and returns the result."""
@@ -940,6 +1096,64 @@ def phase_fast_path(ctx: dict) -> dict:
     return launches
 
 
+def phase_wide(ctx: dict) -> None:
+    """WIDE_METHOD with the hierarchical k-means at 1M × 128."""
+    import vaq_tpu_torch as vt
+    from vaq_tpu_torch import metrics
+    base, queries, gt = ctx["base"], ctx["queries"], ctx["gt"]
+    cfg = dataclasses.replace(vt.parse_method_string(WIDE_METHOD),
+                              hierarchical_kmeans=True)
+    idx = vt.VAQIndex(cfg, device=DEVICE)
+    _step("train (hierarchical k-means above 8 bits)",
+          lambda: idx.train(base, verbose=True), tag="wide")
+    log(f"[wide] bits {idx.bits.tolist()}, {int((idx.bits > 8).sum())} above 8")
+    _step("encode", lambda: idx.encode(base, verbose=True), tag="wide")
+    assert idx.codes.dtype == torch.int32 and int(idx.bits.max()) == 13
+    _step("search decoded k=100 (first call builds the decoded db)",
+          lambda: idx.search(queries, 100, backend="decoded"), NQ_MAIN, "wide")
+    d, lab = _step("search decoded k=100",
+                   lambda: idx.search(queries, 100, backend="decoded"),
+                   NQ_MAIN, "wide")
+    _, cand = _step("search decoded k=200",
+                    lambda: idx.search(queries, 200, backend="decoded"),
+                    NQ_MAIN, "wide")
+    d_ref, l_ref = _step("refine 200->100",
+                         lambda: idx.refine(queries, cand, base, 100), NQ_MAIN,
+                         "wide")
+    r_dec = metrics.avg_recall(lab, gt, 100)
+    r_ref = metrics.avg_recall(l_ref, gt, 100)
+    log(f"[wide] avg_recall@100 decoded {r_dec:.4f}, refined 200->100 "
+        f"{r_ref:.4f} (main path's decoded {ctx['r_dec']:.4f})")
+    assert np.isfinite(d).all() and (lab >= 0).all()
+    assert np.isfinite(d_ref).all() and r_ref >= r_dec
+    try:
+        idx.search(queries[:8], 100, backend="codes")
+    except vt.ConfigError as e:
+        log(f"[wide] backend='codes' refused: {e}")
+    else:
+        raise AssertionError("the codes tier served >8-bit codes")
+
+
+def phase_cli() -> None:
+    """demo_vaq on the card, its lines printed under [cli]."""
+    from vaq_tpu_torch.cli import demo_vaq
+    os.environ.pop("VAQ_TPU_PLATFORM", None)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = demo_vaq.main(CLI_ARGS)
+    dt = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"[cli] {line}")
+    recalls = [float(v) for v in
+               re.findall(r"precision\(avg_recall\): ([0-9.]+)", out.getvalue())]
+    log(f"[cli] demo_vaq {' '.join(CLI_ARGS)}: exit {rc}, {dt:.3f} s")
+    assert rc == 0 and len(recalls) == 2, (rc, recalls)
+    assert all(r >= lo for r, lo in zip(recalls, CLI_MIN_RECALL)), \
+        (recalls, CLI_MIN_RECALL)
+    assert recalls[0] <= recalls[1] <= 1.0, recalls   # refine 100, 200
+
+
 def _ivf_card_vs_cpu(gpu, cpu, queries, ti_segments: int) -> None:
     """One IVF state built on the card, copied to the CPU, searched on both
     with the decoded tier resident (nq ≤ 256: qcap = nq, nothing drops)."""
@@ -970,6 +1184,91 @@ def _ivf_card_vs_cpu(gpu, cpu, queries, ti_segments: int) -> None:
         f"{float(np.max(np.abs(dg - dc) / dc)):.3g})")
     assert (ig >= 0).all() and agree >= 0.99, agree
     assert rel <= 1e-4, rel
+
+
+def _agreement(ig, ic, k: int = K_CMP) -> float:
+    return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ig, ic)]))
+
+
+def _crud_card_vs_cpu(gpu, cpu, queries) -> None:
+    """The 20k index and its probe state (from _ivf_card_vs_cpu) mutated
+    alike on the card and on the CPU: 500 added rows, 400 deleted ids (the
+    first 20 queries' top-1 among them); then the decoded, codes and IVF
+    tiers searched on both."""
+    from vaq_tpu_torch import data
+    added, _ = data.make_anisotropic_gaussian(500, D_MAIN, 0, seed=SEED + 1)
+    _, top1 = cpu.search(queries[:20], 1, backend="decoded")
+    rng = np.random.default_rng(SEED)
+    dead = np.unique(np.concatenate([top1[:, 0], rng.choice(N_CMP + 500, 380,
+                                                            replace=False)]))
+    for idx in (gpu, cpu):
+        idx.add(added)
+        idx.delete(dead)
+    assert torch.equal(gpu.ivf.state.bucket_ids.cpu(), cpu.ivf.state.bucket_ids)
+    assert torch.equal(gpu.ivf.state.sizes.cpu(), cpu.ivf.state.sizes)
+    for backend in ("decoded", "codes", "ivf"):
+        dg, ig = gpu.search(queries, K_CMP, backend=backend)
+        dc, ic = cpu.search(queries, K_CMP, backend=backend)
+        agree = _agreement(ig, ic)
+        log(f"[cmp] crud {backend}: top-{K_CMP} id agreement card vs cpu "
+            f"{agree:.4f}, deleted ids returned {int(np.isin(ig, dead).sum())}")
+        assert agree >= 0.99, (backend, agree)
+        assert not np.isin(ig, dead).any() and not np.isin(ic, dead).any()
+        if backend == "ivf":
+            assert (ig < N_CMP).all() and (ic < N_CMP).all()
+
+
+def _wide_card_vs_cpu(method: str, kmeans_flag: str) -> None:
+    """A 20k index of ``method`` trained on the card with the hierarchical
+    or binary-split k-means, its decoded tier searched on the card and on
+    the CPU."""
+    import vaq_tpu_torch as vt
+    from vaq_tpu_torch import data
+    from vaq_tpu_torch.convert import index_from_numpy
+    base, queries = data.make_anisotropic_gaussian(N_CMP, D_MAIN, NQ_CMP,
+                                                   seed=SEED + 4)
+    cfg = dataclasses.replace(vt.parse_method_string(method),
+                              **{kmeans_flag: True})
+    trained = vt.VAQIndex(cfg, device=DEVICE)
+    _step(f"train {method} ({kmeans_flag}) at {N_CMP} rows",
+          lambda: trained.train(base), tag="cmp")
+    assert (trained.bits > 8).any(), trained.bits   # the wide fit ran
+    trained.encode(base)
+    arrays, meta = trained.state()
+    gpu = index_from_numpy(arrays, meta, DEVICE)
+    cpu = index_from_numpy(arrays, meta, "cpu")
+    dg, ig = gpu.search(queries, K_CMP, backend="decoded")
+    dc, ic = cpu.search(queries, K_CMP, backend="decoded")
+    agree = _agreement(ig, ic)
+    log(f"[cmp] {kmeans_flag} {method}: bits {trained.bits.tolist()}; top-{K_CMP} "
+        f"id agreement card vs cpu {agree:.4f}, max rel Δdist "
+        f"{float(np.max(np.abs(dg - dc) / dc)):.3g}")
+    assert agree >= 0.99, (method, agree)
+    np.testing.assert_allclose(dg, dc, rtol=1e-4)
+
+
+def _bitalloc_card_vs_cpu(method: str) -> None:
+    """A reading, not a check (ROADMAP fault 14): the rotation of ``method``
+    trained on the card and on the CPU from the 20k rows of
+    ``_wide_card_vs_cpu``, with the last cumulative variance, which the
+    min-bits bound compares with percent_var_explained = 1.0, the smallest
+    eigenvalue and the bits each device's spectrum gives."""
+    import vaq_tpu_torch as vt
+    from vaq_tpu_torch import bitalloc, data
+    base, _ = data.make_anisotropic_gaussian(N_CMP, D_MAIN, NQ_CMP,
+                                             seed=SEED + 4)
+    cfg = vt.parse_method_string(method)
+    for dev in (DEVICE, "cpu"):
+        idx = vt.VAQIndex(cfg, device=dev)
+        idx._train_rotation(base)
+        cum = idx.cum_var_per_subs[: idx.highest_subs]
+        bits = bitalloc.allocate_bits(
+            idx.var_per_subs[: idx.highest_subs], cfg.bit_budget,
+            cfg.min_bits, cfg.max_bits, cum_var=cum,
+            percent_var_explained=cfg.percent_var_explained)
+        log(f"[cmp] bit allocation {method} on {dev}: last cum_var - 1 = "
+            f"{float(cum[-1]) - 1.0!r}, eigvals min {float(idx.eigvals.min())!r}"
+            f" max {float(idx.eigvals.max())!r}, bits {bits.tolist()}")
 
 
 def _fast_card_vs_cpu() -> None:
@@ -1029,6 +1328,7 @@ def phase_card_vs_cpu() -> None:
     np.testing.assert_allclose(dg, dc, rtol=1e-4)
     log(f"[cmp] refine: ids equal on {float((ig == ic).mean()):.4f} of entries")
     _ivf_card_vs_cpu(gpu, cpu, queries, 16)
+    _crud_card_vs_cpu(gpu, cpu, queries)
     # d = 96, the shape JAX stored transposed for its K6/K8
     base96, queries96 = data.make_anisotropic_gaussian(N_CMP, 96, NQ_CMP,
                                                        seed=SEED + 2)
@@ -1038,6 +1338,9 @@ def phase_card_vs_cpu() -> None:
     _ivf_card_vs_cpu(index_from_numpy(arrays, meta, DEVICE),
                      index_from_numpy(arrays, meta, "cpu"), queries96, 24)
     _fast_card_vs_cpu()
+    _wide_card_vs_cpu(WIDE_METHOD, "hierarchical_kmeans")
+    _wide_card_vs_cpu(BINARY_METHOD, "binary_kmeans")
+    _bitalloc_card_vs_cpu("VAQ128m16min7max9var1,HEAP")
 
 
 def main() -> int:
@@ -1052,11 +1355,15 @@ def main() -> int:
     log(f"[kernels] clocks.sm, clocks.max.sm, power.draw, temperature: {_clocks()}")
     launches, ctx = phase_main_path()
     launches.update(phase_ivf_path(ctx))
+    phase_crud(ctx)
     ctx["idx"] = None
     torch.cuda.empty_cache()
     launches.update(phase_fast_path(ctx))
+    torch.cuda.empty_cache()
+    phase_wide(ctx)
     del ctx
     torch.cuda.empty_cache()
+    phase_cli()
     phase_card_vs_cpu()
     for kern in kernels:
         # a d = 96, bf16 or C = 256 check is the same kernel as the main

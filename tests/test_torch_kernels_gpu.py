@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 ``decode_window_scan``, K2
 ``decode_rescore``, K3/K4 ``fast4_window_scan``, K5 ``groupmin_window_scan``,
 K7 ``gather_rescore``) against their plain PyTorch versions, on a CUDA
-card.
+card, also on state that ``add`` grew and ``delete`` poisoned.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports neither jax nor vaq_tpu, so on the machine with the card it runs
@@ -28,6 +28,9 @@ import numpy as np
 import pytest
 import torch
 
+import vaq_tpu_torch
+from vaq_tpu_torch import ivf
+from vaq_tpu_torch.convert import index_from_numpy
 from vaq_tpu_torch.ops import probe_scan, rescore, scan_codes
 
 # (M, C, L, n, block_rows), tests/test_scan_pallas.py:147-148
@@ -424,3 +427,127 @@ def test_fast4_window_scan_kernel_matches_plain(cuda, k3_rounding, shape, int8):
         assert torch.equal(s_k, s_r) and torch.equal(i_k, i_r)
     else:
         assert_k3_matches(codes, luts, br, (s_k, i_k), (s_r, i_r))
+
+
+# --- on mutated state --------------------------------------------------------
+
+def poisoned_state(dtype, device, ncl=8, cap=512, d=128, seg=16, n_dead=600,
+                   seed=6):
+    """(IVFState, deleted ids): int8 rows of scale 32 or bf16 rows, every
+    slot live with a shuffled id, then ``n_dead`` ids deleted by
+    ``ivf.poison_deleted`` (id −1, poison pattern or sentinel rows)."""
+    rng = np.random.default_rng(seed)
+    rows, _ = make_rows(ncl * cap, d, dtype, rng)
+    ids = rng.permutation(ncl * cap).astype(np.int32).reshape(ncl, cap)
+    dead = rng.choice(ncl * cap, n_dead, replace=False)
+    st = ivf.IVFState(
+        centroids=rng.standard_normal((ncl, seg)).astype(np.float32),
+        seg_dims=seg, cap=cap,
+        bucket_rows=to_rows(rows, device).view(ncl, cap, d),
+        bucket_ids=torch.as_tensor(ids, device=device),
+        sizes=torch.full((ncl,), cap, dtype=torch.int32, device=device),
+        dim_scales=(torch.full((d,), 32.0, device=device)
+                    if dtype == "int8" else None))
+    ivf.poison_deleted(st, torch.as_tensor(dead, device=device))
+    return st, dead
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_probe_kernels_on_poisoned_buckets(cuda, dtype):
+    """K5 and K7 over buckets whose deleted slots hold id −1 and poison
+    rows, against their plain versions at the tolerances above; then the
+    whole probe on the card against the CPU's on the same state: the same
+    answers, no deleted row."""
+    st, dead = poisoned_state(dtype, cuda)
+    st_cpu, _ = poisoned_state(dtype, "cpu")
+    assert torch.equal(st.bucket_ids.cpu(), st_cpu.bucket_ids)
+    assert torch.equal(st.sizes.cpu(), st_cpu.sizes)
+    assert (st.bucket_ids == -1).sum() == len(dead)
+    ncl, cap, d = st.bucket_rows.shape
+    gs, rng = 8, np.random.default_rng(7)
+    rows = st.bucket_rows.view(ncl * cap, d)
+    w = (torch.full((d,), 1.0 / 1024.0, device=cuda) if dtype == "int8"
+         else torch.ones((d,), device=cuda))
+    qsl = bf16_values(-2.0 * rng.standard_normal((ncl, 64, d)))
+    args = (torch.as_tensor(qsl, device=cuda).to(torch.bfloat16), rows, w,
+            ncl, cap, gs)
+    before = probe_scan.groupmin_window_scan.launches
+    got = probe_scan.groupmin_window_scan(*args)
+    torch.cuda.synchronize()
+    assert probe_scan.groupmin_window_scan.launches == before + 1
+    rows_np = rows.float().cpu().numpy()
+    assert_scores_close(got.cpu(), probe_scan.groupmin_window_scan_ref(
+        *args).cpu(), groupmin_term_scale(qsl, rows_np, w.cpu().numpy(),
+                                          ncl, cap, gs))
+    # windows that hold poisoned slots, and others
+    q = rng.standard_normal((16, d)).astype(np.float32)
+    dead_blk = np.unique(np.nonzero(st_cpu.bucket_ids.numpy().reshape(-1)
+                                    == -1)[0] // gs)
+    wblk = np.concatenate([dead_blk[:16 * 10].reshape(16, 10),
+                           rng.integers(0, ncl * cap // gs, (16, 10))],
+                          axis=1).astype(np.int32)
+    args = (torch.as_tensor(q, device=cuda), w, rows,
+            torch.as_tensor(wblk, device=cuda), gs)
+    before = rescore.gather_rescore.launches
+    got = rescore.gather_rescore(*args)
+    torch.cuda.synchronize()
+    assert rescore.gather_rescore.launches == before + 1
+    assert_scores_close(got.cpu(), rescore.gather_rescore_ref(*args).cpu(),
+                        rescore_term_scale(q, w.cpu().numpy(), rows_np,
+                                           wblk, gs))
+    # the whole probe, card against CPU
+    qp = rng.standard_normal((40, d)).astype(np.float32)
+    d_g, i_g = ivf.IVFSearcher(st, 0.5).search(
+        None, torch.as_tensor(qp, device=cuda), 10)
+    d_c, i_c = ivf.IVFSearcher(st_cpu, 0.5).search(
+        None, torch.as_tensor(qp), 10)
+    i_g, i_c = i_g.cpu().numpy(), i_c.numpy()
+    assert (i_g >= 0).all() and not np.isin(i_g, dead).any()
+    agree = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(i_g, i_c)])
+    assert agree >= 0.99, agree
+    scale = (qp.astype(np.float64) ** 2).sum(1)[:, None] + np.abs(d_c.numpy())
+    assert (np.abs(d_g.cpu().numpy() - d_c.numpy()) <= 1e-4 * scale).all()
+
+
+@pytest.mark.gpu
+def test_codes_kernels_after_add(cuda):
+    """K1/K2 over codes that ``add`` grew to n = 5777, not a multiple of
+    the window: against their plain versions, and the codes tier's answers
+    on the card against the CPU's on the same state."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((6000, 32)).astype(np.float32) * \
+        np.linspace(2.0, 0.2, 32, dtype=np.float32)
+    idx = vaq_tpu_torch.VAQIndex(
+        vaq_tpu_torch.parse_method_string("VAQ64m8min8max8var1,HEAP"),
+        device=cuda).build(x[:5000])
+    ids = idx.add(x[5000:5777])
+    assert idx.n_rows == 5777 and ids[-1] == 5776
+    br = idx._codes_block_rows(2)
+    assert br is not None and idx.n_rows % br != 0, br
+    cents = idx.centroids
+    codes = idx.codes_rowmajor()
+    qp = (x[:70] + 0.1) @ idx.eigvecs[:, :idx.total_dim]
+    table = scan_codes.build_decode_table(cents, cuda)
+    q = torch.as_tensor(qp, device=cuda)
+    before = scan_codes.decode_window_scan.launches
+    s_k, i_k = scan_codes.decode_window_scan(idx.codes, table, q, br)
+    torch.cuda.synchronize()
+    assert scan_codes.decode_window_scan.launches == before + 1
+    assert s_k.shape == (70, -(-5777 // br))
+    s_r, i_r = scan_codes.decode_window_scan_ref(idx.codes, table, q, br)
+    assert_windows_match(cents, codes, qp, s_k.cpu(), i_k.cpu(), s_r.cpu(),
+                         i_r.cpu(), br)
+    cand = torch.as_tensor(rng.integers(0, 5777, (70, 40)).astype(np.int32),
+                           device=cuda)
+    cand[:, -1] = 5776   # the last added row
+    rows = scan_codes.build_decode_rows(cents, cuda)
+    torch.testing.assert_close(
+        scan_codes.decode_rescore(idx.codes, cand, rows, q),
+        scan_codes.decode_rescore_ref(idx.codes, cand, rows, q),
+        rtol=1e-5, atol=1e-6)
+    cpu = index_from_numpy(*idx.state(), "cpu")
+    d_g, i_g = idx.search(x[5000:5070], 2, backend="codes")
+    d_c, i_c = cpu.search(x[5000:5070], 2, backend="codes")
+    assert (i_g[:, 0] == i_c[:, 0]).mean() >= 0.97
+    np.testing.assert_allclose(d_g[:, 0], d_c[:, 0], rtol=1e-4)

@@ -219,8 +219,9 @@ def test_unported_backends_and_bad_inputs_raise(pair):
 def test_unported_fast_search_and_wide_training_raise(pair, tmp_path):
     """A FAST-family index with LUT quantizers survives a save/load round
     trip, and its auto search (the quantized LUT gather scan on the CPU)
-    matches JAX's on the same state; >8-bit hierarchical codebooks raise in
-    train."""
+    matches JAX's on the same state; >8-bit hierarchical codebooks now
+    train (tests/test_torch_kmeans_wide.py holds them to JAX's), and the
+    codes tier of such an index raises."""
     _, queries, jidx, _ = pair
     arrays, meta = jax_state(jidx)
     meta["config"]["methods"] = int(vaq_tpu_torch.SearchMethod.FAST2)
@@ -241,8 +242,10 @@ def test_unported_fast_search_and_wide_training_raise(pair, tmp_path):
                                    min_bits=9, max_bits=10,
                                    hierarchical_kmeans=True)
     x = np.random.default_rng(0).standard_normal((300, 8)).astype(np.float32)
-    with pytest.raises(ConfigError, match="hierarchical"):
-        vaq_tpu_torch.VAQIndex(wide, device="cpu").train(x)
+    trained = vaq_tpu_torch.VAQIndex(wide, device="cpu").build(x)
+    assert int(trained.bits.min()) >= 9
+    with pytest.raises(ConfigError, match="<= 8-bit"):
+        trained.search(x[:4], 5, backend="codes")
 
 
 def test_codes_tier_refuses_wide_codes(pair):

@@ -11,8 +11,12 @@ Ported so far: ``VAQIndex.train`` (PCA, bit allocation, batched k-means),
 (``"decoded8"``), the codes-resident tier (CUDA kernels K1/K2,
 ``ops/scan_codes.py``) and the TI/IVF cluster probe (``attach_ivf``, then
 ``backend="ivf"``; CUDA kernels K5/K7, ``ops/probe_scan.py`` and
-``ops/rescore.py``), and ``refine``. Entry points run on ``"cuda"`` unless
-given ``device="cpu"``; without a card they raise ``DeviceError``.
+``ops/rescore.py``), the FAST/LUT family, ``refine``, the mutations
+(``add``, ``delete``, ``get_codes``, ``reconstruct``), the >8-bit
+codebooks, the reference-format artifacts and dataset I/O (``io``,
+``native``) and the ``demo_vaq`` CLI (``cli``). Entry points run on
+``"cuda"`` unless given ``device="cpu"``; without a card they raise
+``DeviceError``.
 """
 
 import torch as _torch

@@ -47,9 +47,7 @@ def index_from_numpy(arrays: dict, meta: dict,
     idx.n_rows = int(meta["n_rows"])
     if "codes" in arrays:
         codes = np.asarray(arrays["codes"])
-        dtype = np.uint8 if int(idx.bits.max()) <= 8 else np.int32
-        idx.codes = torch.as_tensor(np.ascontiguousarray(codes.astype(dtype)),
-                                    device=idx.device)
+        idx.codes = idx._device_codes(codes)
         idx.n_rows = codes.shape[0]
     if "lut_offsets" in arrays:
         idx.lut_offsets = np.asarray(arrays["lut_offsets"])

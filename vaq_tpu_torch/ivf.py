@@ -22,10 +22,10 @@ runs as
 The buckets are int8 by default (the decoded8 tier's per-dim scales, folded
 into the query) or bf16, row-major ``(ncl, cap, D)`` at every D: the JAX
 package's transposed ``(ncl, D, cap)`` layout at D % 128 ≠ 0 was a TPU
-lane-padding workaround. Left for later: the streamed 100M build
-(``build_ivf_streamed``), ``ShardedIVF``, and the bucket poisoning of
-``VAQIndex.delete``; tombstones present when the buckets are built are
-handled here.
+lane-padding workaround. Tombstones present when the buckets are built
+become dead slots there; rows deleted afterwards are poisoned in place by
+:func:`poison_deleted`, which ``VAQIndex.delete`` calls. Left for later: the
+streamed 100M build (``build_ivf_streamed``) and ``ShardedIVF``.
 """
 
 from __future__ import annotations
@@ -187,6 +187,32 @@ def build_ivf(index, verbose: bool = False,
         sizes=live.sum(dim=1).to(torch.int32),
         dim_scales=dim_scales,
     )
+
+
+def poison_deleted(state: IVFState, ids: torch.Tensor) -> None:
+    """Kill the bucket slots of deleted rows in place (the IVF part of JAX's
+    ``VAQIndex.delete``, vaq_tpu/vaq.py:886-911).
+
+    ``ids`` (on the state's device) are row ids, each in [0, n). Their slots
+    get id −1, which the rescore masks, so the probe never returns them;
+    their rows get the int8 poison pattern or the bf16 sentinel, because the
+    group-min scan ranks by row values and a dead row left in place would
+    keep promoting its window; ``sizes`` lose them per cluster. The slots
+    are found on the device (``torch.isin`` over ``bucket_ids``), with no
+    copy of the id table to the host. ``IVFSearcher.params`` reads ``sizes``
+    back for every batch, so it sees the decrement; a later cache of the
+    sorted cumulative sizes must be dropped here."""
+    dead = torch.isin(state.bucket_ids, ids.to(state.bucket_ids.dtype))
+    if state.bucket_rows.dtype == torch.int8:
+        poison = torch.as_tensor(poison_pattern(state.d_full),
+                                 device=state.bucket_rows.device)
+    else:
+        poison = torch.full((state.d_full,), BF16_SENTINEL,
+                            dtype=state.bucket_rows.dtype,
+                            device=state.bucket_rows.device)
+    state.bucket_ids[dead] = -1
+    state.bucket_rows[dead] = poison
+    state.sizes -= torch.sum(dead, dim=1, dtype=torch.int32)
 
 
 def _fill_capacity(cand: np.ndarray, ncl: int, cap: int) -> np.ndarray:

@@ -10,7 +10,15 @@ Stage mapping (reference file:line → JAX counterpart):
   train    VAQ::train   VAQ.cpp:11-661   vaq.py:206-317
   encode   VAQ::encode  VAQ.cpp:663-748  vaq.py:329-378
   search   VAQ::search  VAQ.cpp:776-847  vaq.py:419-489, 587-819
+  CRUD     get/append/deleteBitV, BitVecEngine.cpp:1626-1636  vaq.py:824-942
   refine   VAQ::refine  VAQ.cpp:849-876  vaq.py:1063-1075
+  interop  saveCentroids/saveCodebook, IO.hpp:736-772  vaq.py:1113-1160
+
+``train`` covers every config, the >8-bit hierarchical and binary-split
+codebooks included (``kmeans.hierarchical_fit``/``binary_split_fit``).
+``add`` appends encoded rows; ``delete`` tombstones rows, which every tier
+then excludes (+inf norms on the decoded tiers, poisoned probe buckets,
+over-fetch and filter on the codes and LUT paths).
 
 ``search`` serves the JAX package's backends: ``"decoded"`` (bf16 decoded
 rows, a plain GEMM), ``"decoded8"`` (the int8 tier, one scale per
@@ -41,6 +49,7 @@ from vaq_tpu_torch import bitalloc, io, kmeans, pca, rng
 from vaq_tpu_torch.config import SearchMethod, VAQConfig
 from vaq_tpu_torch.device import DEFAULT, resolve
 from vaq_tpu_torch.errors import ConfigError, NotReadyError, ShapeError
+from vaq_tpu_torch.ivf import poison_deleted
 from vaq_tpu_torch.ops import scan_codes, scan_decoded, scan_lut
 
 # Sentinel for padded codebook rows: large enough to never win an argmin,
@@ -63,11 +72,16 @@ LUT_SAMPLE_CAP = 65536
 _LUT_LOSS_BLOCK = 1024
 
 
-# Rows per block of _encode_blocked: bounds its (M, rows, C) f32 scores
-# (1 GB at M = 32, C = 256).
+# Rows per block of _encode_blocked, and the elements its (M, rows, C) f32
+# scores may hold: 1 GB, 32,768 rows at M = 32, C = 256, 1,024 rows at
+# C = 8,192 (13-bit subspaces).
 ENCODE_BLOCK_ROWS = 32768
+ENCODE_BLOCK_ELEMS = 1 << 28
 # Host rows moved to the device per encode step.
 ENCODE_CHUNK_ROWS = 2_000_000
+# Subspaces above this many bits train by the hierarchical or binary-split
+# k-means when the config asks for it (the reference's --kmeans-ver 1|2).
+STANDARD_BITS = 8
 
 
 def _lut_route(backend: str, methods: SearchMethod, max_bits: int,
@@ -176,12 +190,13 @@ def _encode_blocked(xp: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     ‖c‖² ≈ 1e36 must stay finite (it would overflow an f16 score).
     """
     n = xp.shape[0]
-    m, _, l = centroids.shape
+    m, c, l = centroids.shape
+    block_rows = min(ENCODE_BLOCK_ROWS, max(1, ENCODE_BLOCK_ELEMS // (m * c)))
     c2 = torch.sum(centroids * centroids, dim=2)          # (M, C)
     cent_t = centroids.transpose(1, 2)                     # (M, L, C)
     codes = torch.empty((n, m), dtype=torch.int64, device=xp.device)
-    for start in range(0, n, ENCODE_BLOCK_ROWS):
-        blk = xp[start:start + ENCODE_BLOCK_ROWS].reshape(-1, m, l)
+    for start in range(0, n, block_rows):
+        blk = xp[start:start + block_rows].reshape(-1, m, l)
         blk = blk.transpose(0, 1)                          # (M, nb, L)
         # ‖x‖² − 2x·c + ‖c‖²; ‖x‖² is constant in the argmin, dropped
         xc = torch.bmm(blk, cent_t)                        # (M, nb, C)
@@ -232,7 +247,7 @@ class VAQIndex:
     lut_offsets: Optional[np.ndarray] = None
     lut_scales: Optional[np.ndarray] = None
 
-    # Tombstoned row ids (set by the JAX package's delete(), read from npz).
+    # Tombstoned row ids (set by delete(), saved and loaded with the npz).
     deleted_ids: Optional[np.ndarray] = None
 
     # Device-side caches (not persisted).
@@ -264,21 +279,8 @@ class VAQIndex:
         cfg = self.config
         dev = self.device
         x_train = np.asarray(x_train, dtype=np.float32)
-        self.orig_dim = x_train.shape[1]
-        x_train = io.pad_dims(x_train, cfg.subspace_num)
-
         t0 = time.perf_counter()
-        rot = pca.train_rotation(x_train, cfg.subspace_num,
-                                 cfg.percent_var_explained, cfg.seed,
-                                 device=dev)
-        self.eigvecs = rot.eigvecs
-        self.eigvals = rot.eigvals
-        self.var_per_subs = rot.var_per_subs
-        self.cum_var_per_subs = rot.cum_var_per_subs
-        self.subs_len = rot.subs_len
-        self.highest_subs = rot.highest_subs
-        self._ev_dev = None
-        self._dec_table = self._dec_rows = None
+        x_train = self._train_rotation(x_train)
         if verbose:
             print(f"== PCA+rotation: {time.perf_counter() - t0:.3f}s "
                   f"(kept {self.highest_subs}/{cfg.subspace_num} subspaces)")
@@ -307,7 +309,9 @@ class VAQIndex:
 
         # Per-subspace codebooks. Only sampled rows reach the device
         # (≤ 256·2^bits per subspace). Subspaces with identical (centroid
-        # count, sample size) train as one batched k-means.
+        # count, sample size) train as one batched k-means; >8-bit subspaces
+        # of a hierarchical or binary-split config, and groups over the
+        # device budget, train one at a time, in JAX's branch order.
         t0 = time.perf_counter()
         m, l = self.highest_subs, self.subs_len
         centroids = np.full((m, self.max_centroids, l), PAD_SENTINEL,
@@ -332,12 +336,12 @@ class VAQIndex:
         groups: dict = {}
         special = []
         for s in range(m):
-            if (cfg.hierarchical_kmeans or cfg.binary_kmeans) and bits[s] > 8:
-                raise ConfigError(
-                    "hierarchical/binary k-means for >8-bit subspaces is not "
-                    "ported yet (ROADMAP queue 1, item 6 remainder)")
-            groups.setdefault((int(self.centroid_counts[s]), samp_of(s)),
-                              []).append(s)
+            if (cfg.hierarchical_kmeans or cfg.binary_kmeans) and \
+                    bits[s] > STANDARD_BITS:
+                special.append(s)
+            else:
+                groups.setdefault((int(self.centroid_counts[s]), samp_of(s)),
+                                  []).append(s)
 
         for (k, samp), subs in groups.items():
             # device budget: (G, samp, k) distances for the whole group
@@ -352,49 +356,136 @@ class VAQIndex:
 
         for s in special:
             k = int(self.centroid_counts[s])
-            c, _ = kmeans.fit(project_sample(s, samp_of(s)), k,
-                              iters=cfg.kmeans_iters, seed=cfg.seed + s)
+            sub_s = project_sample(s, samp_of(s))
+            if cfg.hierarchical_kmeans and bits[s] > STANDARD_BITS:
+                c = kmeans.hierarchical_fit(sub_s, int(bits[s]),
+                                            iters=cfg.kmeans_iters,
+                                            seed=cfg.seed + s)
+            elif cfg.binary_kmeans and bits[s] > STANDARD_BITS:
+                c = kmeans.binary_split_fit(sub_s, int(bits[s]),
+                                            iters=cfg.kmeans_iters,
+                                            seed=cfg.seed + s)
+            else:
+                c, _ = kmeans.fit(sub_s, k, iters=cfg.kmeans_iters,
+                                  seed=cfg.seed + s)
             centroids[s, :k] = c.cpu().numpy()
         self.centroids = centroids
         if verbose:
             print(f"== codebooks: {time.perf_counter() - t0:.3f}s")
         return self
 
-    def build(self, x: np.ndarray) -> "VAQIndex":
+    def _train_rotation(self, x_train: np.ndarray) -> np.ndarray:
+        """PCA rotation and truncation from ``x_train`` on the index's
+        device; returns the rows zero-padded to the subspaces."""
+        cfg = self.config
+        self.orig_dim = x_train.shape[1]
+        x_train = io.pad_dims(x_train, cfg.subspace_num)
+        rot = pca.train_rotation(x_train, cfg.subspace_num,
+                                 cfg.percent_var_explained, cfg.seed,
+                                 device=self.device)
+        self.eigvecs = rot.eigvecs
+        self.eigvals = rot.eigvals
+        self.var_per_subs = rot.var_per_subs
+        self.cum_var_per_subs = rot.cum_var_per_subs
+        self.subs_len = rot.subs_len
+        self.highest_subs = rot.highest_subs
+        self._ev_dev = None
+        self._dec_table = self._dec_rows = None
+        return x_train
+
+    def build(self, x: np.ndarray, verbose: bool = False) -> "VAQIndex":
         """train + encode."""
-        return self.train(x).encode(x)
+        self.train(x, verbose=verbose)
+        return self.encode(x, verbose=verbose)
 
     # ------------------------------------------------------------------
-    # Encode — host row chunks go to the device one at a time, so device
-    # memory stays O(chunk) + O(codes).
+    # Encode — row chunks go to the device one at a time, so device memory
+    # stays O(chunk) + O(codes).
     # ------------------------------------------------------------------
-    def encode(self, x: np.ndarray) -> "VAQIndex":
-        if self.centroids is None:
-            raise NotReadyError("encode() requires train() first")
+    def encode(self, x: np.ndarray, verbose: bool = False,
+               chunk_rows: int = ENCODE_CHUNK_ROWS) -> "VAQIndex":
+        """Encode host rows (vaq_tpu/vaq.py:329-337), ``chunk_rows`` at a
+        time, through :meth:`encode_chunks`."""
         x = io.pad_dims(np.asarray(x, dtype=np.float32),
                         self.config.subspace_num)
-        n = x.shape[0]
+
+        def chunk_fn(i):
+            return x[i * chunk_rows:(i + 1) * chunk_rows]
+
+        return self.encode_chunks(chunk_fn, x.shape[0], chunk_rows,
+                                  verbose=verbose)
+
+    def encode_chunks(self, chunk_fn, n: int,
+                      chunk_rows: int = ENCODE_CHUNK_ROWS,
+                      verbose: bool = False) -> "VAQIndex":
+        """Encode from an arbitrary chunk source (vaq_tpu/vaq.py:339-378).
+
+        ``chunk_fn(i)`` returns chunk ``i`` (rows ``i·chunk_rows`` on, at
+        most ``chunk_rows`` of them) as a (rows_i, d) f32 host or device
+        array: a memmap slice, a tensor already on the card. Codes are
+        written into one preallocated row-major (n, M') buffer, so device
+        memory stays O(chunk) + O(codes). Resets the decoded tiers and the
+        probe state, which described the old codes."""
+        if self.centroids is None:
+            raise NotReadyError("encode() requires train() first")
+        t0 = time.perf_counter()
         cent_dev = torch.as_tensor(self.centroids, device=self.device)
-        ev_dev = self._eigvecs_device()
-        dtype = torch.uint8 if int(self.bits.max()) <= 8 else torch.int32
-        codes = torch.empty((n, self.highest_subs), dtype=dtype,
+        codes = torch.empty((n, self.highest_subs), dtype=self._codes_dtype(),
                             device=self.device)
-        for start in range(0, n, ENCODE_CHUNK_ROWS):
-            rows = torch.as_tensor(x[start:start + ENCODE_CHUNK_ROWS],
-                                   device=self.device)
-            codes[start:start + rows.shape[0]] = _encode_blocked(
-                rows @ ev_dev, cent_dev).to(dtype)
+        for i, start in enumerate(range(0, n, chunk_rows)):
+            chunk = self._encode_rows(chunk_fn(i), cent_dev)
+            codes[start:start + chunk.shape[0]] = chunk
         self.codes = codes
         self.n_rows = n
         self.decoded = None
         self.decoded_norms = None
         self.decoded8 = self.decoded8_scales = self.decoded8_norms = None
         self.ivf = None
+        if verbose:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            print(f"== encode {n} rows: {time.perf_counter() - t0:.3f}s")
         return self
 
+    def _encode_rows(self, rows, cent_dev: torch.Tensor) -> torch.Tensor:
+        """Codes of (r, d) f32 rows, host or device: zero-padded to the
+        rotation's width (io.pad_dims's pad, on the device), projected and
+        assigned to the nearest centroid of each subspace."""
+        ev_dev = self._eigvecs_device()
+        rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
+        if rows.shape[1] < ev_dev.shape[0]:
+            rows = torch.nn.functional.pad(
+                rows, (0, ev_dev.shape[0] - rows.shape[1]))
+        return _encode_blocked(pca.project(rows, ev_dev),
+                               cent_dev).to(self._codes_dtype())
+
+    def _codes_dtype(self) -> torch.dtype:
+        """u8 when every subspace fits, else int32 (the JAX package's u16 has
+        no arithmetic in torch); :meth:`_host_codes` gives JAX's dtype back
+        wherever codes leave the index."""
+        return torch.uint8 if int(self.bits.max()) <= 8 else torch.int32
+
+    def _device_codes(self, codes: np.ndarray) -> torch.Tensor:
+        """Host codes of either package's dtype (u8, u16, int) on the
+        device in :meth:`_codes_dtype`."""
+        codes = np.asarray(codes)
+        if codes.dtype != np.uint8:
+            codes = codes.astype(np.int32)
+        return torch.as_tensor(np.ascontiguousarray(codes),
+                               device=self.device).to(self._codes_dtype())
+
+    def _host_codes(self, codes: torch.Tensor) -> np.ndarray:
+        """Codes as the JAX package holds them: u8, u16 up to 16 bits, else
+        int32."""
+        out = codes.cpu().numpy()
+        if out.dtype != np.uint8:
+            out = out.astype(np.uint16 if int(self.bits.max()) <= 16
+                             else np.int32)
+        return out
+
     def codes_rowmajor(self) -> np.ndarray:
-        """Host copy of the (n, M') codes."""
-        return self.codes.cpu().numpy()
+        """Host copy of the (n, M') codes, in the JAX package's dtype."""
+        return self._host_codes(self.codes)
 
     # ------------------------------------------------------------------
     # Device state
@@ -416,9 +507,10 @@ class VAQIndex:
 
     def _tombstone_norms(self, norms: torch.Tensor) -> torch.Tensor:
         """Deleted rows get +inf norms, so the decoded scan excludes them
-        exactly."""
+        exactly; ids outside the rows name no row, as in ``delete``."""
         if self.deleted_ids is not None and len(self.deleted_ids):
-            norms[self._deleted_device().to(torch.int64)] = torch.inf
+            ids = self._deleted_device().to(torch.int64)
+            norms[ids[(ids >= 0) & (ids < norms.shape[0])]] = torch.inf
         return norms
 
     def _ensure_decoded(self) -> None:
@@ -532,8 +624,8 @@ class VAQIndex:
             self.decoded_norms, k)
 
     def search(self, queries: np.ndarray, k: int, query_batch: int = 512,
-               block_rows: int = 32768, backend: str = "auto"
-               ) -> Tuple[np.ndarray, np.ndarray]:
+               block_rows: int = 32768, backend: str = "auto",
+               verbose: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """ADC top-k search for a query batch; host arrays in and out.
 
         Returns (sq_dists (nq, k) f32, labels (nq, k) int32), ascending.
@@ -552,7 +644,8 @@ class VAQIndex:
         paths use the quantized-then-dequantized tables (FAST3 only on its
         ≤ 4-bit subspaces), as JAX does. Tombstones present when the probe
         buckets were built never come back from the probe; the LUT paths
-        over-fetch k + #deleted and drop them on the host.
+        over-fetch k + #deleted and drop them on the host. ``verbose``
+        prints the batch loop's time and QPS, as JAX does.
         """
         cfg = self.config
         if self.eigvecs is None:
@@ -583,6 +676,7 @@ class VAQIndex:
         nq = queries.shape[0]
         all_d = np.empty((nq, k_run), dtype=np.float32)
         all_i = np.empty((nq, k_run), dtype=np.int32)
+        t0 = time.perf_counter()
         for start in range(0, nq, query_batch):
             qb = torch.as_tensor(queries[start:start + query_batch],
                                  device=self.device)
@@ -596,6 +690,9 @@ class VAQIndex:
                 d, i = self.search_device(qb, k, backend=route)
             all_d[start:start + qb.shape[0]] = d.cpu().numpy()
             all_i[start:start + qb.shape[0]] = i.cpu().numpy()
+        if verbose:
+            dt = time.perf_counter() - t0
+            print(f"== search {nq} queries: {dt:.3f}s ({nq / dt:.1f} QPS)")
         if k_run > k:
             return self._drop_tombstones(all_d, all_i, k)
         return all_d, all_i
@@ -668,6 +765,69 @@ class VAQIndex:
                 np.where(valid, i_s, -1).astype(np.int32))
 
     # ------------------------------------------------------------------
+    # CRUD (reference get/append/deleteBitV, BitVecEngine.cpp:1626-1636)
+    # ------------------------------------------------------------------
+    def add(self, x_new: np.ndarray) -> np.ndarray:
+        """Encode + append rows; returns their new global ids
+        (vaq_tpu/vaq.py:824-854). A resident decoded tier grows by the new
+        rows; the int8 tier is dropped and rebuilt lazily. The probe buckets
+        stay as they were, as in JAX: the IVF path never returns an added
+        row until ``attach_ivf`` runs again."""
+        if self.codes is None:
+            raise NotReadyError("add() requires encode() first")
+        cent_dev = torch.as_tensor(self.centroids, device=self.device)
+        new_codes = self._encode_rows(np.asarray(x_new, dtype=np.float32),
+                                      cent_dev)
+        start = self.n_rows
+        self.codes = torch.cat([self.codes, new_codes])
+        self.n_rows += new_codes.shape[0]
+        if self.decoded is not None:
+            dec, norms = scan_decoded.decode_db(new_codes, cent_dev)
+            self.decoded = torch.cat([self.decoded, dec])
+            self.decoded_norms = torch.cat([self.decoded_norms, norms])
+        self.decoded8 = self.decoded8_scales = self.decoded8_norms = None
+        return np.arange(start, self.n_rows)
+
+    def delete(self, ids) -> None:
+        """Tombstone rows: they stop appearing in results
+        (vaq_tpu/vaq.py:856-924). The decoded tiers exclude them exactly by
+        +inf norms, set here on every resident tier and again on any
+        rebuild; the probe by ``bucket_ids == -1``, its buckets poisoned
+        here (``ivf.poison_deleted``); the codes and LUT paths over-fetch
+        and filter by id in ``search``."""
+        ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
+        if self.deleted_ids is None:
+            self.deleted_ids = np.unique(ids)
+        else:
+            self.deleted_ids = np.unique(
+                np.concatenate([self.deleted_ids, ids]))
+        self._deleted_dev = None  # re-uploaded lazily by _deleted_device
+        dev_ids = torch.as_tensor(ids[(ids >= 0) & (ids < self.n_rows)],
+                                  device=self.device)
+        if self.decoded is not None:
+            self.decoded_norms[dev_ids] = torch.inf
+        if self.decoded8 is not None:
+            self.decoded8_norms[dev_ids] = torch.inf
+        if self.ivf is not None:
+            poison_deleted(self.ivf.state, dev_ids)
+
+    def get_codes(self, ids) -> np.ndarray:
+        """Raw codes of rows (the getBitV analog), in the JAX package's
+        dtype."""
+        sel = torch.as_tensor(np.atleast_1d(ids), dtype=torch.int64,
+                              device=self.device)
+        return self._host_codes(self.codes[sel])
+
+    def reconstruct(self, ids) -> np.ndarray:
+        """Decoded (reconstructed) vectors of rows, f32 (M'·L wide)."""
+        codes = self.get_codes(ids).astype(np.int64)
+        out = np.empty((codes.shape[0], self.total_dim), dtype=np.float32)
+        l = self.subs_len
+        for s in range(self.highest_subs):
+            out[:, s * l:(s + 1) * l] = self.centroids[s][codes[:, s]]
+        return out
+
+    # ------------------------------------------------------------------
     # LUT quantization (V16)
     # ------------------------------------------------------------------
     def learn_quantization(self, x_train: np.ndarray,
@@ -738,11 +898,7 @@ class VAQIndex:
             "centroid_counts": self.centroid_counts,
         }
         if self.codes is not None:
-            codes = self.codes_rowmajor()
-            if codes.dtype != np.uint8:   # the JAX package stores u16 there
-                codes = codes.astype(np.uint16 if int(self.bits.max()) <= 16
-                                     else np.int32)
-            arrays["codes"] = codes
+            arrays["codes"] = self.codes_rowmajor()
         if self.lut_offsets is not None:
             arrays["lut_offsets"] = self.lut_offsets
             arrays["lut_scales"] = self.lut_scales
@@ -766,11 +922,57 @@ class VAQIndex:
     def save(self, path: str) -> None:
         io.save_index_npz(path, *self.state())
 
+    def export_reference_artifacts(self, centroids_path: str,
+                                   codes_path: str) -> None:
+        """Write centroids/codes in the C++ reference's binary formats
+        (saveCentroids/saveCodebook; vaq_tpu/vaq.py:1113-1120), codes as
+        the format's u16."""
+        cents = [self.centroids[s, : int(self.centroid_counts[s])]
+                 for s in range(self.highest_subs)]
+        io.save_centroids_ref(centroids_path, cents)
+        io.save_codebook_ref(codes_path, self.codes_rowmajor())
+
     @classmethod
-    def load(cls, path: str, device: torch.device | str = DEFAULT
-             ) -> "VAQIndex":
-        """Load an index saved by either package onto ``device``."""
+    def from_reference_artifacts(cls, config: VAQConfig, centroids_path: str,
+                                 codes_path: str, x_train: np.ndarray,
+                                 device: torch.device | str = DEFAULT
+                                 ) -> "VAQIndex":
+        """Build an index on ``device`` from the C++ engine's saved centroids
+        + codebook (vaq_tpu/vaq.py:1122-1160).
+
+        The reference does NOT persist the eigenvectors (SURVEY §5), so the
+        rotation is retrained from the same training data on ``device``;
+        centroids and codes are then adopted as-is.
+        """
+        idx = cls(config, device=device)
+        idx._train_rotation(np.asarray(x_train, dtype=np.float32))
+        cents = io.load_centroids_ref(centroids_path)
+        idx.highest_subs = min(idx.highest_subs, len(cents))
+        counts = np.array([c.shape[0] for c in cents[: idx.highest_subs]],
+                          dtype=np.int64)
+        idx.bits = np.round(np.log2(counts)).astype(np.int64)
+        idx.centroid_counts = counts
+        cmax = 1 << int(idx.bits.max())
+        full = np.full((idx.highest_subs, cmax, idx.subs_len), PAD_SENTINEL,
+                       dtype=np.float32)
+        for s, c in enumerate(cents[: idx.highest_subs]):
+            full[s, : c.shape[0]] = c
+        idx.centroids = full
+
+        codes = io.load_codebook_ref(codes_path)[:, : idx.highest_subs]
+        idx.codes = idx._device_codes(codes)
+        idx.n_rows = codes.shape[0]
+        return idx
+
+    @classmethod
+    def load(cls, path: str, device: torch.device | str = DEFAULT,
+             with_codes: bool = True) -> "VAQIndex":
+        """Load an index saved by either package onto ``device``.
+        ``with_codes=False`` skips the device upload of the codes, for flows
+        that serve another tier (vaq_tpu/vaq.py:1162-1171)."""
         from vaq_tpu_torch.convert import index_from_numpy
 
         arrays, meta = io.load_index_npz(path)
+        if not with_codes:
+            arrays.pop("codes", None)
         return index_from_numpy(arrays, meta, device)
