@@ -5,7 +5,7 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``, one
-``nvcc`` per source, all at once) and runs ten phases, printing progress
+``nvcc`` per source, all at once) and runs eleven phases, printing progress
 as it goes:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc
@@ -27,7 +27,10 @@ as it goes:
    gs = 8) with int8 rows, at d = 96 (the shape of JAX's transposed K6),
    with bf16 rows, with about 51 of the 112 slots occupied (visit 0.1) and
    at qcap = 512 (visit 1.0); K7 at 512 queries × 200 windows of 8 rows, int8 and bf16, d = 128
-   and 96 (K8); K3 (f32 LUT) and K4 (s8 LUT) at the FAST path's shape
+   and 96 (K8); K5 and K7 at the 100M probe's shapes (32 buckets of
+   102,400 int8 rows at d = 96, gs = 256: K5 with 520 slots filled around
+   256, K7 with 1024 queries × 20 windows, beside a bf16 ``bmm`` of the
+   windows gathered beforehand); K3 (f32 LUT) and K4 (s8 LUT) at the FAST path's shape
    (M = 64, C = 16, 1M rows padded to 1,001,472, 512 queries, 256-row
    windows; the tensor-core form) and at M = 32, C = 256, 262,144 rows, 128
    queries, 512-row windows (the gather form), beside a tensor-core product
@@ -86,7 +89,18 @@ as it goes:
    state mutated alike on both by add and delete, the hierarchical and the
    binary-split configs trained on the card, with the binary split's
    training time, and a FAST state through fast4 with and without its LUT
-   quantizers and through ``"lut_gather"``); the answers must agree.
+   quantizers and through ``"lut_gather"``); the answers must agree;
+11. ``[deep100m]``: ``scripts/capacity_100m_torch.py``'s ``run()`` at the
+   full DEEP-100M size, 100M × 96, ``VAQ256m32min5max8var1``, 1024 queries,
+   k = 10: rows generated on the card, train, streamed encode, exact
+   groundtruth@100, the codes tier (K1/K2's counters zeroed before, read
+   after), the int8 tier, refine 100 and 500 → 10, the streamed probe build
+   (1000 clusters, capacity 102,400, gs = 256) with the codes and the int8
+   tier resident, and visit 0.25 / 0.10 / 0.05 (K5/K7's counters zeroed
+   before the sweep, read after), each stage's wall, QPS, recall and peak
+   memory, and a ``torch.profiler`` split of one visit-0.1 batch; recall
+   at visit 0.25 must reach visit 0.05's, refine 500 refine 100's and
+   refine 100 the int8 tier's.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are a JSON object of per-kernel numbers and the card's
@@ -141,6 +155,17 @@ KC_NCL, KC_CAP, KC_QCAP, KC_GS, KC_WIN = 1000, 1536, 112, 8, 200
 # K5's other two checks: about 51 of the 112 slots occupied per cluster (the
 # dispatch's fill at visit 0.1), and qcap = 512 (visit 1.0)
 KC_SLOTS_MEAN, KC_QCAP_FULL = 51, 512
+# [deep100m]: the reference's Fig. 11a deployment, DEEP-100M
+# (ExperimentsParameters.txt:114-124), at full size through
+# scripts/capacity_100m_torch.py: 100M × 96, VAQ256m32min5max8var1, 1024
+# queries in one batch, k = 10, 1000 clusters over 16 subspaces at capacity
+# factor 1.0 (102,400 slots a cluster, gs = 256), visit 0.25 / 0.10 / 0.05
+DEEP_N, DEEP_D, DEEP_NQ, DEEP_K = 100_000_000, 96, 1024, 10
+# K5/K7 at that path's shapes, on 32 of its clusters: visit 0.25's qcap
+# (pick_qcap(1024, 250, 1000) = 520 slots) filled around its mean demand of
+# 256 queries a cluster; K7 with m = max(2k, 16) = 20 windows of 256 rows a
+# query
+KD_NCL, KD_CAP, KD_GS, KD_QCAP, KD_SLOTS, KD_WIN = 32, 102_400, 256, 520, 256, 20
 TI_CLUSTERS, TI_SEGMENTS = 1000, 16       # bench.py:642-643
 VISITS = (0.25, 0.10, 0.05, 1.0)          # Fig. 11 (ExperimentsParameters.txt:114-124), then all
 # K3/K4 at the FAST path's shape (M = 64, C = 16, 256-row windows, 512
@@ -252,7 +277,7 @@ def _assert_within_terms(got, ref, scale, what, rtol=RTOL_KERNEL):
     return float((got[fin] - ref[fin]).abs().max())
 
 
-def _groupmin_scale(qsl, rows, w, ncl, cap, gs, chunk=100):
+def _groupmin_scale(qsl, rows, w, ncl, cap, gs, chunk):
     """Per (cluster, slot, group): Σ_d|qsl_d·x_d| + Σ w·x² + qn at the
     group's smallest row, in f64 — the size of the terms K5 sums."""
     qcap, d = qsl.shape[1:]
@@ -286,13 +311,14 @@ def _rescore_scale(q, w, rows, wblk, gs, chunk=64):
     return out
 
 
-def _probe_rows(gen, d, dtype):
-    """The 1M probe buckets' shape filled with seeded rows: int8 of scale 32
-    (w = 1/32²) or their bf16 values (w = 1); the last 3 slots of each bucket
-    hold padding (the int8 poison pattern / the 1e15 bf16 sentinel)."""
+def _probe_rows(gen, d, dtype, ncl=KC_NCL, cap=KC_CAP):
+    """Probe buckets of ``ncl`` × ``cap`` rows (the 1M index's by default)
+    filled with seeded rows: int8 of scale 32 (w = 1/32²) or their bf16
+    values (w = 1); the last 3 slots of each bucket hold padding (the int8
+    poison pattern / the 1e15 bf16 sentinel)."""
     from vaq_tpu_torch.ops import probe_scan
     dev = torch.device(DEVICE)
-    x = torch.randn((KC_NCL, KC_CAP, d), generator=gen, device=dev) * 32.0
+    x = torch.randn((ncl, cap, d), generator=gen, device=dev) * 32.0
     x = torch.clamp(torch.round(x), -127, 127)
     if dtype == "int8":
         x = x.to(torch.int8)
@@ -302,54 +328,61 @@ def _probe_rows(gen, d, dtype):
         x = x.to(torch.bfloat16)
         x[:, -3:] = 1e15
         w = torch.ones((d,), device=dev)
-    return x.view(KC_NCL * KC_CAP, d), w
+    return x.view(ncl * cap, d), w
 
 
 def _check_groupmin(gen, d: int, dtype: str, qcap: int = KC_QCAP,
-                    slots_mean: int | None = None) -> dict:
-    """K5 against its plain version over the 1M probe buckets, all ``qcap``
-    slots occupied or, with ``slots_mean``, n_slots drawn around it per
-    cluster (as the dispatch fills them); tolerance 1e-5 of the terms summed
-    (bf16 × int8/bf16 products are exact in f32; only the order of the sums
-    differs). The bound counts what these inputs need: the rows, the live
-    slots' slab, the minima, and the products of live slots only."""
+                    slots_mean: int | None = None, ncl: int = KC_NCL,
+                    cap: int = KC_CAP, gs: int = KC_GS) -> dict:
+    """K5 against its plain version over ``ncl`` probe buckets of ``cap``
+    rows (the 1M index's by default), all ``qcap`` slots occupied or, with
+    ``slots_mean``, n_slots drawn around it per cluster (as the dispatch
+    fills them); tolerance 1e-5 of the terms summed (bf16 × int8/bf16
+    products are exact in f32; only the order of the sums differs). The
+    bound counts what these inputs need: the rows, the live slots' slab,
+    the minima, and the products of live slots only."""
     from vaq_tpu_torch.ops import probe_scan
     dev = torch.device(DEVICE)
-    rows, w = _probe_rows(gen, d, dtype)
-    qsl = (-2.0 * torch.randn((KC_NCL, qcap, d), generator=gen,
+    rows, w = _probe_rows(gen, d, dtype, ncl, cap)
+    qsl = (-2.0 * torch.randn((ncl, qcap, d), generator=gen,
                               device=dev)).to(torch.bfloat16)
     n_slots = None
-    live = KC_NCL * qcap
+    live = ncl * qcap
     if slots_mean is not None:
         n_slots = torch.clamp(torch.round(
-            slots_mean + 12.0 * torch.randn((KC_NCL,), generator=gen, device=dev)),
+            slots_mean + 12.0 * torch.randn((ncl,), generator=gen, device=dev)),
             0, qcap).to(torch.int32)
         live = int(n_slots.sum())
-    args = (qsl, rows, w, KC_NCL, KC_CAP, KC_GS, n_slots)
+    args = (qsl, rows, w, ncl, cap, gs, n_slots)
     got = probe_scan.groupmin_window_scan(*args)
     ref = probe_scan.groupmin_window_scan_ref(*args)
     torch.cuda.synchronize()
-    assert got.shape == (KC_NCL, qcap, KC_CAP // KC_GS)
-    err = _assert_within_terms(got, ref, _groupmin_scale(*args[:6]),
-                               f"K5 d={d} {dtype} qcap={qcap}")
+    assert got.shape == (ncl, qcap, cap // gs)
+    scale = _groupmin_scale(*args[:6],
+                            chunk=max(1, min(100, (1 << 26) // (qcap * cap))))
+    err = _assert_within_terms(got, ref, scale,
+                               f"K5 d={d} {dtype} qcap={qcap} gs={gs}")
+    del scale, ref
     ms = _time_ms(lambda: probe_scan.groupmin_window_scan(*args), 10)
     plain = _time_ms(lambda: probe_scan.groupmin_window_scan_ref(*args), 3)
-    rows_bf = rows.view(KC_NCL, KC_CAP, d).to(torch.bfloat16).transpose(1, 2)
+    rows_bf = rows.view(ncl, cap, d).to(torch.bfloat16).transpose(1, 2)
     library = _time_ms(lambda: torch.bmm(qsl, rows_bf), 10)
     del rows_bf
-    ng = KC_CAP // KC_GS
+    ng = cap // gs
     nbytes = (rows.numel() * rows.element_size() + live * d * 2 + d * 4
-              + KC_NCL * qcap * ng * 4)
-    ops = 2.0 * live * KC_CAP * d + 3.0 * KC_NCL * KC_CAP * d
+              + ncl * qcap * ng * 4)
+    ops = 2.0 * live * cap * d + 3.0 * ncl * cap * d
     bound = _bound(nbytes, ops, "bf16")
     what = (f"d={d} {dtype} rows, qcap={qcap}"
-            + ("" if n_slots is None else f", {live / KC_NCL:.1f} live slots a cluster"))
+            + ("" if gs == KC_GS else f", {ncl} buckets of {cap} rows, gs={gs}")
+            + ("" if n_slots is None else f", {live / ncl:.1f} live slots a cluster"))
     log(f"[kernels] K5 groupmin_window_scan {what}: max|Δ| {err:.3g}, kernel "
         f"{ms:.3f} ms ({100 * bound[0] / ms:.1f}% of the bound), plain "
         f"{plain:.3f} ms, bf16 bmm {library:.3f} ms, bound {bound[0]:.4f} ms "
         f"({bound[1]})")
     k6 = d % 128 != 0
     name = ("groupmin_window_scan" + (f"_d{d}" if k6 else "")
+            + ("" if gs == KC_GS else f"_gs{gs}")
             + ("" if dtype == "int8" else "_bf16")
             + ("" if qcap == KC_QCAP else f"_q{qcap}")
             + ("" if slots_mean is None else f"_slots{slots_mean}"))
@@ -358,35 +391,50 @@ def _check_groupmin(gen, d: int, dtype: str, qcap: int = KC_QCAP,
                   err, ms, plain, bound, library)
 
 
-def _check_rescore(gen, d: int, dtype: str) -> dict:
-    """K7 against its plain version: 512 queries × 200 windows of 8 rows
-    drawn from the 1M probe buckets; tolerance 1e-5 of the terms summed."""
+def _check_rescore(gen, d: int, dtype: str, nq: int = KC_NQ,
+                   win: int = KC_WIN, gs: int = KC_GS, ncl: int = KC_NCL,
+                   cap: int = KC_CAP) -> dict:
+    """K7 against its plain version: ``nq`` queries × ``win`` windows of
+    ``gs`` rows drawn from ``ncl`` probe buckets of ``cap`` rows (512 × 200
+    windows of 8 rows from the 1M buckets by default); tolerance 1e-5 of
+    the terms summed."""
     from vaq_tpu_torch.ops import rescore
     dev = torch.device(DEVICE)
-    rows, w = _probe_rows(gen, d, dtype)
-    n_blk = rows.shape[0] // KC_GS
-    q = torch.randn((KC_NQ, d), generator=gen, device=dev)
-    wblk = torch.randint(0, n_blk, (KC_NQ, KC_WIN), generator=gen, device=dev,
+    rows, w = _probe_rows(gen, d, dtype, ncl, cap)
+    n_blk = rows.shape[0] // gs
+    q = torch.randn((nq, d), generator=gen, device=dev)
+    wblk = torch.randint(0, n_blk, (nq, win), generator=gen, device=dev,
                          dtype=torch.int32)
-    args = (q, w, rows, wblk, KC_GS)
+    args = (q, w, rows, wblk, gs)
     got = rescore.gather_rescore(*args)
     ref = rescore.gather_rescore_ref(*args)
     torch.cuda.synchronize()
-    assert got.shape == (KC_NQ, KC_WIN, KC_GS)
+    assert got.shape == (nq, win, gs)
     err = _assert_within_terms(got, ref, _rescore_scale(*args),
-                               f"K7 d={d} {dtype}")
+                               f"K7 d={d} {dtype} gs={gs}")
+    del ref
     ms = _time_ms(lambda: rescore.gather_rescore(*args), 20)
     plain = _time_ms(lambda: rescore.gather_rescore_ref(*args), 5)
-    gathered = KC_NQ * KC_WIN * KC_GS * d
+    gathered = nq * win * gs * d
     nbytes = (gathered * rows.element_size() + q.numel() * 4 + d * 4
               + wblk.numel() * 4 + got.numel() * 4)
     bound = _bound(nbytes, 4.0 * gathered, "bf16")
-    log(f"[kernels] K7 gather_rescore d={d} {dtype} rows: max|Δ| {err:.3g}, "
+    # the product alone, on windows gathered beforehand: not K7's function
+    # (the gather is left out), so it is logged and not the library time
+    blk = rows.view(n_blk, gs, d)[wblk.long()].view(nq, win * gs, d).to(
+        torch.bfloat16)
+    q_bf = q.to(torch.bfloat16)[:, :, None]
+    bmm = _time_ms(lambda: torch.bmm(blk, q_bf), 20)
+    del blk
+    log(f"[kernels] K7 gather_rescore d={d} {dtype} rows, {win} windows of "
+        f"{gs}: max|Δ| {err:.3g}, "
         f"kernel {ms:.4f} ms ({nbytes / (ms * 1e6):.0f} GB/s, "
         f"{100 * bound[0] / ms:.1f}% of the bound), plain {plain:.3f} ms, bound "
-        f"{bound[0]:.4f} ms ({bound[1]})")
+        f"{bound[0]:.4f} ms ({bound[1]}); bf16 bmm of the windows gathered "
+        f"beforehand {bmm:.4f} ms")
     k8 = d % 128 != 0
     return _entry("gather_rescore" + (f"_d{d}" if k8 else "")
+                  + ("" if gs == KC_GS else f"_gs{gs}")
                   + ("" if dtype == "int8" else "_bf16"),
                   "vaq_tpu_torch/csrc/gather_rescore.cu",
                   "vaq_tpu/ops/rescore_pallas.py:" + ("39" if k8 else "105"),
@@ -676,6 +724,13 @@ def phase_kernels() -> list[dict]:
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
         kernels.append(_check_rescore(gen, d_k, dtype))
         torch.cuda.empty_cache()
+    # the 100M probe's shapes ([deep100m]): 102,400-row buckets, gs = 256
+    kernels.append(_check_groupmin(gen, DEEP_D, "int8", KD_QCAP, KD_SLOTS,
+                                   KD_NCL, KD_CAP, KD_GS))
+    torch.cuda.empty_cache()
+    kernels.append(_check_rescore(gen, DEEP_D, "int8", DEEP_NQ, KD_WIN, KD_GS,
+                                  KD_NCL, KD_CAP))
+    torch.cuda.empty_cache()
     rounding = scan_codes.k3_accumulation_rounding(dev)
     log(f"[kernels] K3's tensor-core form: wgmma adds each k step to its f32 "
         f"accumulator rounding {rounding}")
@@ -797,12 +852,13 @@ def _device_split(prof, names) -> tuple[dict, float]:
     return out, sum(out.values())
 
 
-def _profile_split(tag: str, what: str, fn, stages) -> None:
-    """One call of ``fn`` (a 512-query search) under ``torch.profiler``:
-    the device ms inside each of the profiler ranges ``stages`` and the
-    rest, the device's busy time and its share of the unprofiled batch wall
-    (the profiler slows the host), and the device time by kernel."""
-    wall = _batch_wall_ms(fn)
+def _profile_split(tag: str, what: str, fn, stages, reps: int = 9) -> None:
+    """One call of ``fn`` (a search batch) under ``torch.profiler``: the
+    device ms inside each of the profiler ranges ``stages`` and the rest,
+    the device's busy time and its share of the unprofiled batch wall (the
+    median of ``reps`` calls; the profiler slows the host), and the device
+    time by kernel."""
+    wall = _batch_wall_ms(fn, reps)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -810,7 +866,7 @@ def _profile_split(tag: str, what: str, fn, stages) -> None:
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
     split, busy = _device_split(prof, stages)
-    log(f"[{tag}] {what}, one 512-query batch: wall {wall:.3f} ms unprofiled "
+    log(f"[{tag}] {what}, one batch: wall {wall:.3f} ms unprofiled "
         f"({prof_wall:.3f} ms under the profiler), device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}% of the unprofiled wall); device ms by stage "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
@@ -1343,6 +1399,72 @@ def phase_card_vs_cpu() -> None:
     _bitalloc_card_vs_cpu("VAQ128m16min7max9var1,HEAP")
 
 
+def phase_deep100m() -> dict:
+    """DEEP-100M through ``scripts/capacity_100m_torch.py``'s ``run()``;
+    returns the launches of K1/K2 (counted over the codes tier) and K5/K7
+    (over the visit sweep)."""
+    import importlib.util
+    from vaq_tpu_torch import ivf
+    spec = importlib.util.spec_from_file_location(
+        "capacity_100m_torch", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "scripts",
+            "capacity_100m_torch.py"))
+    capacity = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(capacity)
+    seen = {}
+
+    def after_sweep(idx, state, qp):
+        # every structure still resident; one visit-0.1 batch split by stage
+        seen.update(codes=idx.codes is not None, decoded8=idx.decoded8 is not None,
+                    cap=state.cap, gs=ivf.pick_gs(state.cap))
+        _profile_split("deep100m", f"visit 0.1, {qp.shape[0]} queries",
+                       lambda: ivf.IVFSearcher(state, 0.10).search(idx, qp, DEEP_K),
+                       ("ivf.probe", "ivf.groupmin", "ivf.merge", "ivf.rescore",
+                        "ivf.second_stage"), reps=5)
+
+    t0 = time.perf_counter()
+    out = capacity.run(n=DEEP_N, d=DEEP_D, queries=DEEP_NQ, k=DEEP_K,
+                     batch=DEEP_NQ, device=DEVICE, after_sweep=after_sweep)
+    wall = time.perf_counter() - t0
+    st = out["stages"]
+    log(f"[deep100m] wall {wall:.1f} s; stages (s): " + ", ".join(
+        f"{name} {rec['wall_s']:.2f}" for name, rec in st.items()))
+    for name, rec in st.items():
+        if "qps" in rec or "recall_at_k" in rec:
+            log(f"[deep100m] {name}: " + (f"{rec['qps']:.1f} QPS, "
+                                          if "qps" in rec else "")
+                + f"avg_recall@{DEEP_K} {rec['recall_at_k']:.4f}, peak "
+                f"{rec['peak_bytes'] / 2**30:.2f} GiB")
+    b = st["ivf_build"]
+    log(f"[deep100m] probe build: cap {b['cap']} (gs {seen['gs']}), live sizes "
+        f"{b['sizes_min']}-{b['sizes_max']}, {b['spilled']} rows spilled "
+        f"outside their 4 nearest clusters; passes: k-means "
+        f"{b['centroids_s']:.2f} s, nearest clusters {b['candidates_s']:.2f} s, "
+        f"capacity fill and slots {b['assign_s']:.2f} s, int8 fill "
+        f"{b['fill_s']:.2f} s")
+    res = out["resident_bytes"]
+    peak = max(st[f"ivf_visit{v}"]["peak_bytes"] for v in (0.25, 0.1, 0.05))
+    log(f"[deep100m] resident during the sweep: codes {res['codes'] / 1e9:.2f} "
+        f"GB, int8 tier {res['decoded8'] / 1e9:.2f} GB, buckets "
+        f"{res['buckets'] / 1e9:.2f} GB; peak with K5's output "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[deep100m] {json.dumps(out)}")
+    launches = out["launches"]
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the 100M path"
+    assert seen["codes"] and seen["decoded8"] and seen["gs"] == KD_GS, seen
+    assert b["cap"] == KD_CAP, b
+    rec = {name: r["recall_at_k"] for name, r in st.items() if "recall_at_k" in r}
+    assert all(0.0 < r <= 1.0 for r in rec.values()), rec
+    assert rec["ivf_visit0.25"] >= rec["ivf_visit0.05"], rec
+    assert rec["refine500"] >= rec["refine100"] >= rec["decoded8"], rec
+    return {"decode_window_scan_100m": launches["decode_window_scan"],
+            "decode_rescore_100m": launches["decode_rescore"],
+            f"groupmin_window_scan_d{DEEP_D}_gs{KD_GS}":
+                launches["groupmin_window_scan"],
+            f"gather_rescore_d{DEEP_D}_gs{KD_GS}": launches["gather_rescore"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1365,6 +1487,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli()
     phase_card_vs_cpu()
+    torch.cuda.empty_cache()
+    launches.update(phase_deep100m())
     for kern in kernels:
         # a d = 96, bf16 or C = 256 check is the same kernel as the main
         # path's: the longest counter name that prefixes the check's

@@ -32,7 +32,7 @@ from vaq_tpu import ivf as jivf
 from vaq_tpu_torch import ivf
 from vaq_tpu_torch.convert import index_from_numpy, ivf_state_from_numpy
 from vaq_tpu_torch.errors import NotReadyError
-from vaq_tpu_torch.ops import probe_scan
+from vaq_tpu_torch.ops import probe_scan, scan_codes
 
 torch.set_num_threads(2)  # six test workers share the host
 
@@ -167,6 +167,53 @@ def test_delete_matches_jax(crud_base, resident):
     got = assert_tiers_match(j, t, queries)
     for tier, ids in got.items():
         assert not np.isin(ids, dead).any(), tier
+
+
+def test_delete_out_of_range_ids_touch_no_row(crud_base, monkeypatch):
+    """ROADMAP fault 15, a deliberate divergence from JAX (like fault 4):
+    ids < 0 and ≥ n name no row in the port. Deleting them leaves the
+    codes, the decoded and int8 tiers, the probe buckets and their sizes as
+    they were; ``deleted_ids`` keeps them, and the codes tier's over-fetch
+    counts them (k + #deleted), as JAX's does, with JAX's answers. JAX's
+    scatter wraps −1 to the last row, so its decoded tiers hide row n − 1,
+    and its probe matches −1 against every empty slot and takes those off
+    its sizes."""
+    _, queries, _, jidx = crud_base
+    j, t = fresh_pair(jidx, True)
+    n = t.n_rows
+    tiers = ("codes", "decoded", "decoded_norms", "decoded8",
+             "decoded8_norms")
+    before = {name: getattr(t, name).clone() for name in tiers}
+    st = t.ivf.state
+    probe = (st.bucket_rows.clone(), st.bucket_ids.clone(), st.sizes.clone())
+    out = np.array([-1, -7, n, n + 5])
+    for idx in (j, t):
+        idx.delete(out)
+    for name in tiers:
+        assert torch.equal(getattr(t, name), before[name]), name
+    for got, was in zip((st.bucket_rows, st.bucket_ids, st.sizes), probe):
+        assert torch.equal(got, was)
+    np.testing.assert_array_equal(t.deleted_ids, np.sort(out))
+    np.testing.assert_array_equal(t.deleted_ids, j.deleted_ids)
+
+    fetched = []
+    real = scan_codes.decode_scan_topk
+
+    def spy(*args, **kw):
+        fetched.append(args[4])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(scan_codes, "decode_scan_topk", spy)
+    k = 3   # 4000 // (64·3) rows: 16-row windows, the codes tier serves
+    d_t, i_t = t.search(queries, k, backend="codes")
+    assert fetched and set(fetched) == {k + len(out)}
+    d_j, i_j = jax_search(j, queries, k, "codes")
+    assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-5)
+
+    assert np.isinf(np.asarray(j.decoded_norms)[n - 1])
+    assert np.isinf(np.asarray(j.decoded8_norms)[n - 1])
+    assert torch.isfinite(t.decoded_norms[n - 1])
+    assert int(np.asarray(j.ivf.state.sizes).sum()) < int(st.sizes.sum())
 
 
 def test_delete_poisons_like_jax_exactly():

@@ -37,7 +37,8 @@ def _python(code: str, cwd: Path = ROOT, env_extra=None):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "capacity_100m_torch.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_vaq_tpu_import_in_source(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
@@ -48,6 +49,8 @@ def test_import_loads_neither_jax_nor_vaq_tpu_and_sets_precision():
         "import json, sys, torch\n"
         "import vaq_tpu_torch, vaq_tpu_torch.convert, vaq_tpu_torch.data\n"
         "import vaq_tpu_torch.ops.scan_codes, vaq_tpu_torch.ops.scan_lut\n"
+        "import runpy\n"
+        "runpy.run_path('scripts/capacity_100m_torch.py')\n"
         "print(json.dumps({\n"
         "  'mods': sorted(m for m in sys.modules),\n"
         "  'tf32': torch.backends.cuda.matmul.allow_tf32,\n"
@@ -124,12 +127,20 @@ def _entry_points(tmp_path):
         "build_decode_rows": lambda: scan_codes.build_decode_rows(
             idx.centroids),
         "train_rotation": lambda: pca.train_rotation(x, 4),
+        "DeviceChunkSource": lambda: data.DeviceChunkSource(300, 16, 100),
+        "exact_search_chunked": lambda: distances.exact_search_chunked(
+            x[:2], lambda i: x[i * 100:(i + 1) * 100], 300, 100, 5),
+        "exact_rescore_chunked": lambda: distances.exact_rescore_chunked(
+            x[:2], np.zeros((2, 5), np.int32),
+            lambda i: x[i * 100:(i + 1) * 100], 300, 100, 5),
     }
 
 
 ENTRY_POINTS = ["VAQIndex", "VAQIndex.load", "index_from_numpy",
                 "ivf_state_from_numpy", "make_sift_like", "compute_groundtruth",
-                "build_decode_table", "build_decode_rows", "train_rotation"]
+                "build_decode_table", "build_decode_rows", "train_rotation",
+                "DeviceChunkSource", "exact_search_chunked",
+                "exact_rescore_chunked"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

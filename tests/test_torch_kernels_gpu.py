@@ -338,6 +338,55 @@ def test_gather_rescore_kernel_matches_plain(cuda, dtype, shape):
                         rescore_term_scale(q, w, rows, wblk, gs)[ok])
 
 
+# The 100M probe's shapes (DEEP-100M: 1000 clusters of capacity 102,400,
+# gs = pick_gs(102400) = 256, int8 rows at d = 96), cut in clusters and
+# queries. K5: two buckets, 136 slots (two 128-slot chunks), one bucket's
+# slots all occupied, the other's to 70. K7: visit's m = max(2k, 16) = 20
+# windows a query at k = 10, 256 rows each (24 KB: eight 32-row chunks of
+# 3 KB in the ring), 64 queries over two buckets' 800 windows.
+DEEP_CAP, DEEP_D = 102_400, 96
+
+
+@pytest.mark.gpu
+def test_groupmin_window_scan_kernel_at_100m_shape(cuda):
+    ncl, qcap = 2, 136
+    gs = probe_scan.pick_gs(DEEP_CAP)
+    assert gs == 256
+    qsl, rows, w = make_groupmin_inputs(ncl, DEEP_CAP, qcap, DEEP_D, "int8",
+                                        seed=6)
+    args = (torch.as_tensor(qsl, device=cuda).to(torch.bfloat16),
+            to_rows(rows, cuda), torch.as_tensor(w, device=cuda), ncl,
+            DEEP_CAP, gs)
+    n_slots = torch.tensor([qcap, 70], dtype=torch.int32, device=cuda)
+    before = probe_scan.groupmin_window_scan.launches
+    got = probe_scan.groupmin_window_scan(*args, n_slots)
+    torch.cuda.synchronize()
+    assert probe_scan.groupmin_window_scan.launches == before + 1
+    ref = probe_scan.groupmin_window_scan_ref(*args, n_slots)
+    assert got.shape == (ncl, qcap, DEEP_CAP // gs)
+    assert torch.isinf(got[1, 70:]).all() and torch.isfinite(got[0]).all()
+    assert_scores_close(got.cpu(), ref.cpu(),
+                        groupmin_term_scale(qsl, rows, w, ncl, DEEP_CAP, gs))
+
+
+@pytest.mark.gpu
+def test_gather_rescore_kernel_at_100m_shape(cuda):
+    nq, m, gs = 64, 20, probe_scan.pick_gs(DEEP_CAP)
+    nblk = 2 * DEEP_CAP // gs
+    q, w, rows, wblk = make_rescore_inputs(nq, m, gs, DEEP_D, nblk, "int8",
+                                           seed=7)
+    args = (torch.as_tensor(q, device=cuda), torch.as_tensor(w, device=cuda),
+            to_rows(rows, cuda), torch.as_tensor(wblk, device=cuda), gs)
+    before = rescore.gather_rescore.launches
+    got = rescore.gather_rescore(*args)
+    torch.cuda.synchronize()
+    assert rescore.gather_rescore.launches == before + 1
+    ref = rescore.gather_rescore_ref(*args)
+    assert got.shape == (nq, m, gs)
+    assert_scores_close(got.cpu().numpy(), ref.cpu().numpy(),
+                        rescore_term_scale(q, w, rows, wblk, gs))
+
+
 # (n, M, C, nq, block_rows) for K3/K4: the main FAST shape cut in rows, the
 # C = 256 shape (the gather form), windows that span blocks or are not
 # warp-aligned, M with a ragged last code word, one-row windows, C = 8, and

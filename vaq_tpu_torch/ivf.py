@@ -2,7 +2,8 @@
 
 The counterpart of ``vaq_tpu/ivf.py`` (``IVFState`` :54, ``resolve_seg_num``
 :89, ``build_ivf`` :100-263, ``_fill_capacity`` :266, ``_bucket_slots``
-:295, ``_round_cap`` :309, ``probe_scan`` :602-770, ``IVFSearcher``
+:295, ``_round_cap`` :309, ``build_ivf_streamed`` :318-508,
+``_upload_ivf_state`` :510-600, ``probe_scan`` :602-770, ``IVFSearcher``
 :773-836, ``attach_ivf`` :948). The reference's TI path (``VAQ::clusterTI``
 VAQ.cpp:878-999 + ``searchTriangleInequality`` VAQ.cpp:1540-1692) clusters
 the reconstructed rows over the first ``ti_segment_num`` subspaces and at
@@ -24,14 +25,22 @@ into the query) or bf16, row-major ``(ncl, cap, D)`` at every D: the JAX
 package's transposed ``(ncl, D, cap)`` layout at D % 128 ≠ 0 was a TPU
 lane-padding workaround. Tombstones present when the buckets are built
 become dead slots there; rows deleted afterwards are poisoned in place by
-:func:`poison_deleted`, which ``VAQIndex.delete`` calls. Left for later: the
-streamed 100M build (``build_ivf_streamed``) and ``ShardedIVF``.
+:func:`poison_deleted`, which ``VAQIndex.delete`` calls.
+
+:func:`build_ivf_streamed` builds the same int8 buckets from the resident
+codes, chunk by chunk, for a database whose decode cannot exist whole (19.2
+GB of bf16 at 100M × 96). JAX staged them in a host buffer and uploaded it
+in pieces, answers to the TPU's 16 GB and its transfer pool; here they are
+filled in place on the index's device, and the capacity fill and the slot
+table run there too. Left for later: ``ShardedIVF``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -45,7 +54,8 @@ from vaq_tpu_torch.ops.probe_scan import (groupmin_window_scan, pick_gs,
                                           poison_pattern)
 from vaq_tpu_torch.ops.rescore import gather_rescore
 from vaq_tpu_torch.ops.scan_codes import _select_lowest
-from vaq_tpu_torch.ops.scan_decoded import int8_dim_scales, quantize_int8
+from vaq_tpu_torch.ops.scan_decoded import (decode_db, int8_dim_scales,
+                                            quantize_int8)
 
 # Rows per block of the top-S cluster candidates (bounds its (rows, ncl)
 # f32 distances: 256 MB at 1000 clusters) and slots per block of the bucket
@@ -109,17 +119,7 @@ def build_ivf(index, verbose: bool = False,
     without changing it."""
     if rows_dtype not in ("int8", "bf16"):
         raise ConfigError(f"rows_dtype must be int8|bf16, got {rows_dtype}")
-    cfg = index.config
-    if ti_cluster_num is not None or ti_segment_num is not None:
-        cfg = dataclasses.replace(
-            cfg,
-            ti_cluster_num=(cfg.ti_cluster_num if ti_cluster_num is None
-                            else ti_cluster_num),
-            ti_segment_num=(cfg.ti_segment_num if ti_segment_num is None
-                            else ti_segment_num))
-    ncl = int(cfg.ti_cluster_num)
-    if ncl <= 0:
-        raise ConfigError("ti_cluster_num must be set for the TI/IVF method")
+    cfg, ncl = _ti_config(index.config, ti_cluster_num, ti_segment_num)
     index._ensure_decoded()
     dec = index.decoded                          # (n, D) bf16
     norms = index.decoded_norms
@@ -187,6 +187,23 @@ def build_ivf(index, verbose: bool = False,
         sizes=live.sum(dim=1).to(torch.int32),
         dim_scales=dim_scales,
     )
+
+
+def _ti_config(cfg, ti_cluster_num: Optional[int],
+               ti_segment_num: Optional[int]):
+    """(the config with the given TI overrides, its cluster count); raises
+    ConfigError when no cluster count is set."""
+    if ti_cluster_num is not None or ti_segment_num is not None:
+        cfg = dataclasses.replace(
+            cfg,
+            ti_cluster_num=(cfg.ti_cluster_num if ti_cluster_num is None
+                            else ti_cluster_num),
+            ti_segment_num=(cfg.ti_segment_num if ti_segment_num is None
+                            else ti_segment_num))
+    ncl = int(cfg.ti_cluster_num)
+    if ncl <= 0:
+        raise ConfigError("ti_cluster_num must be set for the TI/IVF method")
+    return cfg, ncl
 
 
 def poison_deleted(state: IVFState, ids: torch.Tensor) -> None:
@@ -264,6 +281,253 @@ def _round_cap(cap: int) -> int:
     it which windows exist."""
     q = 512 if cap <= 32768 else 4096
     return -(-cap // q) * q
+
+
+def _fill_capacity_device(cand: torch.Tensor, ncl: int, cap: int
+                          ) -> torch.Tensor:
+    """:func:`_fill_capacity` on a tensor, on its device: the same rounds,
+    stable sorts and spill, so the same assignment (n,) int64 as the numpy
+    version."""
+    n, s_cand = cand.shape
+    dev = cand.device
+    fill = torch.zeros(ncl, dtype=torch.int64, device=dev)
+    assign = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for j in range(s_cand):
+        un = torch.nonzero(assign < 0)[:, 0]
+        if un.numel() == 0:
+            break
+        sorted_choice, order = torch.sort(cand[un, j].to(torch.int64),
+                                          stable=True)
+        seg_start = torch.searchsorted(sorted_choice, sorted_choice)
+        rank = torch.arange(un.numel(), device=dev) - seg_start
+        take = rank < (cap - fill)[sorted_choice]
+        assign[un[order[take]]] = sorted_choice[take]
+        fill += torch.bincount(sorted_choice[take], minlength=ncl)
+    spill = torch.nonzero(assign < 0)[:, 0]
+    if spill.numel():  # extremely skewed data: fill remaining space
+        slots = torch.repeat_interleave(torch.arange(ncl, device=dev),
+                                        torch.clamp_min(cap - fill, 0))
+        assign[spill] = slots[: spill.numel()]
+    return assign
+
+
+def _bucket_slots_device(assign: torch.Tensor, ncl: int, cap: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_bucket_slots` on a tensor, on its device: (bids (ncl, cap)
+    int32, dest (n,) int64), equal to the numpy version's."""
+    n = assign.shape[0]
+    dev = assign.device
+    sorted_assign, order = torch.sort(assign, stable=True)
+    seg_start = torch.searchsorted(sorted_assign, sorted_assign)
+    slot = sorted_assign * cap + (torch.arange(n, device=dev) - seg_start)
+    bids = torch.full((ncl * cap,), -1, dtype=torch.int32, device=dev)
+    bids[slot] = order.to(torch.int32)
+    dest = torch.empty(n, dtype=torch.int64, device=dev)
+    dest[order] = slot
+    return bids.view(ncl, cap), dest
+
+
+def build_ivf_streamed(index, n_chunks_fn=None, verbose: bool = False,
+                       balance_cap_factor: float = 1.05,
+                       ti_cluster_num: Optional[int] = None,
+                       ti_segment_num: Optional[int] = None,
+                       sample_n: int = 2_000_000,
+                       chunk_rows: int = 2_000_000,
+                       free_codes_before_upload: bool = False,
+                       stage_cache: Optional[str] = None,
+                       stats: Optional[dict] = None) -> IVFState:
+    """int8 probe buckets built from the resident codes, ``chunk_rows`` rows
+    at a time (JAX ``build_ivf_streamed``, ivf.py:318-508), so device
+    transients stay O(chunk) next to the (ncl·cap, D) buckets.
+
+    1. k-means (``kmeans.lloyd`` from ``ncl`` sample rows drawn by numpy
+       from the config's seed) on the f32 prefix of the bf16 decode of the
+       first ``sample_n // n_chunks`` rows of every chunk;
+    2. each row's min(4, ncl) nearest clusters (``probe.cluster_sq_dists``,
+       ties to the lower id), then the capacity fill into ``cap =
+       _round_cap(ceil(balance_cap_factor · n / ncl))`` slots a cluster and
+       the slot table, both on the device (:func:`_fill_capacity_device`,
+       :func:`_bucket_slots_device`, equal to JAX's numpy steps);
+       tombstoned ids in [0, n) get id −1 and leave ``sizes``;
+    3. every chunk decoded again, quantized to int8 with the decoded8
+       tier's scales (round half to even, ±127) and scattered into the
+       poison-filled buckets by its rows' slots.
+
+    JAX staged the buckets in a host buffer and uploaded them in pieces
+    (the TPU's 16 GB, its transfer pool); here they are filled in place on
+    the index's device. ``stage_cache`` keeps JAX's npz format (``buf``
+    row-major (ncl·cap, D) int8, ``bids``, ``sizes``, ``cents``, ``cap``,
+    ``seg_dims``, ``dim_scales``): a cache written by either package loads
+    in the other, and a loaded cache needs no codes.
+    ``free_codes_before_upload`` drops the codes at the end, after which
+    the index serves only the probe. ``n_chunks_fn`` is unused, as in JAX.
+    ``stats``, when given, receives the wall seconds of k-means
+    (``centroids_s``), of the nearest clusters (``candidates_s``), of the
+    capacity fill and slot table (``assign_s``) and of the int8 fill
+    (``fill_s``), ``cap``, the live sizes' min and max and ``spilled``: the
+    rows the fill placed outside their nearest clusters (ROADMAP fault
+    9)."""
+    cfg, ncl = _ti_config(index.config, ti_cluster_num, ti_segment_num)
+    d_full = index.total_dim
+    stats = {} if stats is None else stats
+    if stage_cache and os.path.exists(stage_cache):
+        z = np.load(stage_cache)
+        if verbose:
+            print(f"== ivf-streamed: staging loaded from {stage_cache}")
+        return _upload_ivf_state(index, z["buf"], z["bids"], z["sizes"],
+                                 z["cents"], int(z["cap"][0]),
+                                 int(z["seg_dims"][0]), z["dim_scales"],
+                                 ncl, d_full, free_codes_before_upload,
+                                 verbose)
+
+    dev = index.device
+    n = index.codes.shape[0]
+    dim_scales = int8_dim_scales(index.centroids).to(dev)[:d_full]
+    seg_dims, cl_cents, cand = _streamed_candidates(index, cfg, ncl,
+                                                    chunk_rows, sample_n,
+                                                    stats)
+    t0 = time.perf_counter()
+    cap = _round_cap(max(1, int(math.ceil(balance_cap_factor * n / ncl))))
+    assign = _fill_capacity_device(cand, ncl, cap)
+    stats["spilled"] = int(torch.sum(~torch.any(cand == assign[:, None],
+                                                dim=1)))
+    del cand
+    bids, dest = _bucket_slots_device(assign, ncl, cap)
+    sizes = torch.bincount(assign, minlength=ncl).to(torch.int32)
+    # tombstones: rows deleted before the build are dead slots (id −1) and
+    # leave the live counts the visit rule uses; ids outside [0, n) name no
+    # row (ROADMAP fault 15)
+    dd = None
+    if index.deleted_ids is not None and len(index.deleted_ids):
+        dd = torch.as_tensor(index.deleted_ids, dtype=torch.int64,
+                             device=dev)
+        dd = dd[(dd >= 0) & (dd < n)]
+        bids.view(-1)[dest[dd]] = -1
+        sizes -= torch.bincount(assign[dd], minlength=ncl).to(torch.int32)
+    del assign
+    _sync(dev)
+    stats["assign_s"] = time.perf_counter() - t0
+    stats.update(cap=cap, sizes_min=int(sizes.min()),
+                 sizes_max=int(sizes.max()))
+    if verbose:
+        print(f"== ivf-streamed: assignment {stats['assign_s']:.1f}s "
+              f"(cap={cap}, sizes min/max={stats['sizes_min']}/"
+              f"{stats['sizes_max']}, spilled={stats['spilled']})")
+
+    # ---- pass 3: int8 rows scattered into the poisoned buckets ----
+    t0 = time.perf_counter()
+    cents_dev = torch.as_tensor(index.centroids, device=dev)
+    poison = torch.as_tensor(poison_pattern(d_full), device=dev)
+    buf = poison.expand(ncl * cap, d_full).contiguous()
+    for start in range(0, n, chunk_rows):
+        rows = min(chunk_rows, n - start)
+        buf[dest[start:start + rows]] = quantize_int8(
+            decode_db(index.codes[start:start + rows], cents_dev)[0],
+            dim_scales)
+    if dd is not None:
+        buf[dest[dd]] = poison
+    del dest
+    _sync(dev)
+    stats["fill_s"] = time.perf_counter() - t0
+    if verbose:
+        print(f"== ivf-streamed: centroids {stats['centroids_s']:.1f}s, "
+              f"candidates {stats['candidates_s']:.1f}s, "
+              f"fill {stats['fill_s']:.1f}s")
+
+    cents_np = cl_cents.cpu().numpy()
+    if stage_cache:
+        np.savez(stage_cache, buf=buf.cpu().numpy(), bids=bids.cpu().numpy(),
+                 sizes=sizes.cpu().numpy(), cents=cents_np,
+                 cap=np.array([cap]), seg_dims=np.array([seg_dims]),
+                 dim_scales=dim_scales.cpu().numpy())
+        if verbose:
+            print(f"== ivf-streamed: staging cached to {stage_cache}")
+    return _upload_ivf_state(index, buf, bids, sizes, cents_np, cap,
+                             seg_dims, dim_scales, ncl, d_full,
+                             free_codes_before_upload, verbose)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _streamed_candidates(index, cfg, ncl: int, chunk_rows: int,
+                         sample_n: int, stats: dict):
+    """Passes 1 and 2 of :func:`build_ivf_streamed` (JAX ivf.py:433-461):
+    (seg_dims, the k-means centroids (ncl, seg_dims) f32, each row's
+    min(4, ncl) nearest of them (n, S) int32, ties to the lower id), on
+    the index's device, from the f32 prefix of the bf16 decode of its
+    codes."""
+    dev = index.device
+    codes = index.codes                                  # (n, M) row-major
+    n = codes.shape[0]
+    seg_subs = resolve_seg_num(cfg, index.cum_var_per_subs,
+                               index.highest_subs)
+    seg_dims = min(seg_subs, index.highest_subs) * index.subs_len
+    cents_dev = torch.as_tensor(index.centroids, device=dev)
+    n_chunks = -(-n // chunk_rows)
+
+    def prefix(start: int, rows: int) -> torch.Tensor:
+        dec = decode_db(codes[start:start + rows], cents_dev)[0]
+        return dec[:, :seg_dims].to(torch.float32)
+
+    # ---- pass 1: sampled prefix → k-means centroids ----
+    t0 = time.perf_counter()
+    spc = max(1, min(sample_n // n_chunks, chunk_rows))
+    sample = torch.cat([prefix(s, min(spc, n - s))
+                        for s in range(0, n, chunk_rows)])
+    ns = sample.shape[0]
+    init_idx = np.random.default_rng(cfg.seed).choice(
+        ns, size=min(ncl, ns), replace=ncl > ns)
+    cl_cents = kmeans.lloyd(sample, sample[torch.as_tensor(init_idx,
+                                                           device=dev)],
+                            iters=cfg.kmeans_iters)
+    del sample
+    _sync(dev)
+    stats["centroids_s"] = time.perf_counter() - t0
+
+    # ---- pass 2: each row's nearest clusters ----
+    t0 = time.perf_counter()
+    s_cand = min(4, ncl)
+    cand = torch.empty((n, s_cand), dtype=torch.int32, device=dev)
+    for start in range(0, n, chunk_rows):
+        pre = prefix(start, min(chunk_rows, n - start))
+        for s in range(0, pre.shape[0], _BLOCK_ROWS):
+            top = _select_lowest(probe_ops.cluster_sq_dists(
+                pre[s:s + _BLOCK_ROWS], cl_cents), s_cand)[1]
+            cand[start + s:start + s + top.shape[0]] = top
+    _sync(dev)
+    stats["candidates_s"] = time.perf_counter() - t0
+    return seg_dims, cl_cents, cand
+
+
+def _upload_ivf_state(index, buf, bids, sizes, cents_np, cap: int,
+                      seg_dims: int, dim_scales, ncl: int, d_full: int,
+                      free_codes: bool, verbose: bool) -> IVFState:
+    """The staged arrays, on the host or already on the index's device, as
+    an ``IVFState`` there (JAX ivf.py:510-600, whose chunked, lazily retired
+    upload answered the TPU's transfer pool and has nothing to do here).
+    ``free_codes`` drops the index's codes first."""
+    if free_codes:
+        index.codes = None
+    dev = index.device
+
+    def put(a, dtype):
+        return torch.as_tensor(a, device=dev).to(dtype)
+
+    state = IVFState(
+        centroids=np.asarray(cents_np, dtype=np.float32),
+        seg_dims=int(seg_dims),
+        cap=int(cap),
+        bucket_rows=put(buf, torch.int8).view(ncl, cap, d_full),
+        bucket_ids=put(bids, torch.int32).view(ncl, cap),
+        sizes=put(sizes, torch.int32),
+        dim_scales=put(dim_scales, torch.float32))
+    if verbose:
+        print(f"== ivf-streamed: {ncl} clusters × {cap} slots × {d_full} "
+              f"int8 on {dev} ({state.bucket_rows.numel() / 1e9:.2f} GB)")
+    return state
 
 
 def probe_scan(
