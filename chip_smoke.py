@@ -100,7 +100,10 @@ as it goes:
    before the sweep, read after), each stage's wall, QPS, recall and peak
    memory, and a ``torch.profiler`` split of one visit-0.1 batch; recall
    at visit 0.25 must reach visit 0.05's, refine 500 refine 100's and
-   refine 100 the int8 tier's.
+   refine 100 the int8 tier's. Then K1/K2 (on the resident 100M codes, the
+   path's queries, table and 512-row windows) and K5/K7 (on the resident
+   1000 buckets of 102,400 rows) are held against their plain versions,
+   where their offsets pass 2^31.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are a JSON object of per-kernel numbers and the card's
@@ -166,6 +169,9 @@ DEEP_N, DEEP_D, DEEP_NQ, DEEP_K = 100_000_000, 96, 1024, 10
 # 256 queries a cluster; K7 with m = max(2k, 16) = 20 windows of 256 rows a
 # query
 KD_NCL, KD_CAP, KD_GS, KD_QCAP, KD_SLOTS, KD_WIN = 32, 102_400, 256, 520, 256, 20
+# K5 on the resident 100M buckets: live slots in the last 16 of the 1000
+# clusters only
+KD_LIVE = 16
 TI_CLUSTERS, TI_SEGMENTS = 1000, 16       # bench.py:642-643
 VISITS = (0.25, 0.10, 0.05, 1.0)          # Fig. 11 (ExperimentsParameters.txt:114-124), then all
 # K3/K4 at the FAST path's shape (M = 64, C = 16, 256-row windows, 512
@@ -334,84 +340,118 @@ def _probe_rows(gen, d, dtype, ncl=KC_NCL, cap=KC_CAP):
 def _check_groupmin(gen, d: int, dtype: str, qcap: int = KC_QCAP,
                     slots_mean: int | None = None, ncl: int = KC_NCL,
                     cap: int = KC_CAP, gs: int = KC_GS) -> dict:
-    """K5 against its plain version over ``ncl`` probe buckets of ``cap``
-    rows (the 1M index's by default), all ``qcap`` slots occupied or, with
+    """K5 over ``ncl`` probe buckets of ``cap`` seeded rows (the 1M
+    index's by default), all ``qcap`` slots occupied or, with
     ``slots_mean``, n_slots drawn around it per cluster (as the dispatch
-    fills them); tolerance 1e-5 of the terms summed (bf16 × int8/bf16
-    products are exact in f32; only the order of the sums differs). The
-    bound counts what these inputs need: the rows, the live slots' slab,
-    the minima, and the products of live slots only."""
-    from vaq_tpu_torch.ops import probe_scan
+    fills them), held against its plain version by :func:`_held_groupmin`."""
     dev = torch.device(DEVICE)
     rows, w = _probe_rows(gen, d, dtype, ncl, cap)
     qsl = (-2.0 * torch.randn((ncl, qcap, d), generator=gen,
                               device=dev)).to(torch.bfloat16)
     n_slots = None
-    live = ncl * qcap
     if slots_mean is not None:
         n_slots = torch.clamp(torch.round(
             slots_mean + 12.0 * torch.randn((ncl,), generator=gen, device=dev)),
             0, qcap).to(torch.int32)
-        live = int(n_slots.sum())
-    args = (qsl, rows, w, ncl, cap, gs, n_slots)
-    got = probe_scan.groupmin_window_scan(*args)
-    ref = probe_scan.groupmin_window_scan_ref(*args)
-    torch.cuda.synchronize()
-    assert got.shape == (ncl, qcap, cap // gs)
-    scale = _groupmin_scale(*args[:6],
-                            chunk=max(1, min(100, (1 << 26) // (qcap * cap))))
-    err = _assert_within_terms(got, ref, scale,
-                               f"K5 d={d} {dtype} qcap={qcap} gs={gs}")
-    del scale, ref
-    ms = _time_ms(lambda: probe_scan.groupmin_window_scan(*args), 10)
-    plain = _time_ms(lambda: probe_scan.groupmin_window_scan_ref(*args), 3)
-    rows_bf = rows.view(ncl, cap, d).to(torch.bfloat16).transpose(1, 2)
-    library = _time_ms(lambda: torch.bmm(qsl, rows_bf), 10)
-    del rows_bf
-    ng = cap // gs
-    nbytes = (rows.numel() * rows.element_size() + live * d * 2 + d * 4
-              + ncl * qcap * ng * 4)
-    ops = 2.0 * live * cap * d + 3.0 * ncl * cap * d
-    bound = _bound(nbytes, ops, "bf16")
-    what = (f"d={d} {dtype} rows, qcap={qcap}"
-            + ("" if gs == KC_GS else f", {ncl} buckets of {cap} rows, gs={gs}")
-            + ("" if n_slots is None else f", {live / ncl:.1f} live slots a cluster"))
-    log(f"[kernels] K5 groupmin_window_scan {what}: max|Δ| {err:.3g}, kernel "
-        f"{ms:.3f} ms ({100 * bound[0] / ms:.1f}% of the bound), plain "
-        f"{plain:.3f} ms, bf16 bmm {library:.3f} ms, bound {bound[0]:.4f} ms "
-        f"({bound[1]})")
     k6 = d % 128 != 0
     name = ("groupmin_window_scan" + (f"_d{d}" if k6 else "")
             + ("" if gs == KC_GS else f"_gs{gs}")
             + ("" if dtype == "int8" else "_bf16")
             + ("" if qcap == KC_QCAP else f"_q{qcap}")
             + ("" if slots_mean is None else f"_slots{slots_mean}"))
+    what = (f"d={d} {dtype} rows, qcap={qcap}"
+            + ("" if gs == KC_GS else f", {ncl} buckets of {cap} rows, gs={gs}"))
+    return _held_groupmin((qsl, rows, w, ncl, cap, gs, n_slots), name, what)
+
+
+def _held_groupmin(args, name: str, what: str, tag: str = "kernels",
+                   library: bool = True, plain_reps: int = 3) -> dict:
+    """K5 against its plain version on ``args`` (qsl, rows, w, ncl, cap, gs,
+    n_slots); tolerance 1e-5 of the terms summed (bf16 × int8/bf16 products
+    are exact in f32; only the order of the sums differs), checked on the
+    clusters with live slots, the rest +inf in both. The bound counts what
+    these inputs need: those clusters' rows, the live slots' slab, the
+    minima, and the products of live slots only. The library yardstick
+    (``library``) is one bf16 ``bmm`` of every slab against its bucket."""
+    from vaq_tpu_torch.ops import probe_scan
+    qsl, rows, w, ncl, cap, gs, n_slots = args
+    qcap, d = qsl.shape[1:]
+    got = probe_scan.groupmin_window_scan(*args)
+    ref = probe_scan.groupmin_window_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (ncl, qcap, cap // gs)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref)), name
+    if n_slots is None:
+        live_c, live = ncl, ncl * qcap
+        scale = _groupmin_scale(qsl, rows, w, ncl, cap, gs,
+                                chunk=max(1, min(100, (1 << 26) // (qcap * cap))))
+        err = _assert_within_terms(got, ref, scale, f"K5 {what}")
+    else:
+        held = torch.nonzero(n_slots > 0)[:, 0]
+        live_c, live = held.numel(), int(n_slots.sum())
+        sub_rows = rows.view(ncl, cap, d)[held].view(-1, d)
+        scale = _groupmin_scale(qsl[held], sub_rows, w, live_c, cap, gs,
+                                chunk=max(1, min(100, (1 << 26) // (qcap * cap))))
+        err = _assert_within_terms(got[held], ref[held], scale, f"K5 {what}")
+        del sub_rows
+    del scale, ref
+    ms = _time_ms(lambda: probe_scan.groupmin_window_scan(*args), 10)
+    plain = _time_ms(lambda: probe_scan.groupmin_window_scan_ref(*args),
+                     plain_reps)
+    lib_ms = None
+    if library:
+        rows_bf = rows.view(ncl, cap, d).to(torch.bfloat16).transpose(1, 2)
+        lib_ms = _time_ms(lambda: torch.bmm(qsl, rows_bf), 10)
+        del rows_bf
+    ng = cap // gs
+    nbytes = (live_c * cap * d * rows.element_size() + live * d * 2 + d * 4
+              + ncl * qcap * ng * 4)
+    ops = 2.0 * live * cap * d + 3.0 * live_c * cap * d
+    bound = _bound(nbytes, ops, "bf16")
+    if n_slots is not None:
+        what += f", {live / live_c:.1f} live slots in each of {live_c} clusters"
+    log(f"[{tag}] K5 groupmin_window_scan {what}: max|Δ| {err:.3g}, kernel "
+        f"{ms:.3f} ms ({100 * bound[0] / ms:.1f}% of the bound), plain "
+        f"{plain:.3f} ms, "
+        + (f"bf16 bmm {lib_ms:.3f} ms, " if lib_ms is not None else "")
+        + f"bound {bound[0]:.4f} ms ({bound[1]})")
     return _entry(name, "vaq_tpu_torch/csrc/groupmin_window_scan.cu",
-                  "vaq_tpu/ops/probe_pallas.py:" + ("205" if k6 else "158"),
-                  err, ms, plain, bound, library)
+                  "vaq_tpu/ops/probe_pallas.py:" + ("205" if d % 128 else "158"),
+                  err, ms, plain, bound, lib_ms)
 
 
 def _check_rescore(gen, d: int, dtype: str, nq: int = KC_NQ,
                    win: int = KC_WIN, gs: int = KC_GS, ncl: int = KC_NCL,
                    cap: int = KC_CAP) -> dict:
-    """K7 against its plain version: ``nq`` queries × ``win`` windows of
-    ``gs`` rows drawn from ``ncl`` probe buckets of ``cap`` rows (512 × 200
-    windows of 8 rows from the 1M buckets by default); tolerance 1e-5 of
-    the terms summed."""
-    from vaq_tpu_torch.ops import rescore
+    """K7 on ``nq`` queries × ``win`` windows of ``gs`` rows drawn from
+    ``ncl`` probe buckets of ``cap`` seeded rows (512 × 200 windows of 8
+    rows from the 1M buckets by default), held against its plain version by
+    :func:`_held_rescore`."""
     dev = torch.device(DEVICE)
     rows, w = _probe_rows(gen, d, dtype, ncl, cap)
-    n_blk = rows.shape[0] // gs
     q = torch.randn((nq, d), generator=gen, device=dev)
-    wblk = torch.randint(0, n_blk, (nq, win), generator=gen, device=dev,
-                         dtype=torch.int32)
-    args = (q, w, rows, wblk, gs)
+    wblk = torch.randint(0, rows.shape[0] // gs, (nq, win), generator=gen,
+                         device=dev, dtype=torch.int32)
+    name = ("gather_rescore" + (f"_d{d}" if d % 128 else "")
+            + ("" if gs == KC_GS else f"_gs{gs}")
+            + ("" if dtype == "int8" else "_bf16"))
+    return _held_rescore((q, w, rows, wblk, gs), name,
+                         f"d={d} {dtype} rows, {win} windows of {gs}")
+
+
+def _held_rescore(args, name: str, what: str, tag: str = "kernels") -> dict:
+    """K7 against its plain version on ``args`` (q, w, rows, wblk, gs);
+    tolerance 1e-5 of the terms summed."""
+    from vaq_tpu_torch.ops import rescore
+    q, w, rows, wblk, gs = args
+    nq, win = wblk.shape
+    d = rows.shape[1]
+    n_blk = rows.shape[0] // gs
     got = rescore.gather_rescore(*args)
     ref = rescore.gather_rescore_ref(*args)
     torch.cuda.synchronize()
     assert got.shape == (nq, win, gs)
-    err = _assert_within_terms(got, ref, _rescore_scale(*args),
-                               f"K7 d={d} {dtype} gs={gs}")
+    err = _assert_within_terms(got, ref, _rescore_scale(*args), f"K7 {what}")
     del ref
     ms = _time_ms(lambda: rescore.gather_rescore(*args), 20)
     plain = _time_ms(lambda: rescore.gather_rescore_ref(*args), 5)
@@ -426,18 +466,13 @@ def _check_rescore(gen, d: int, dtype: str, nq: int = KC_NQ,
     q_bf = q.to(torch.bfloat16)[:, :, None]
     bmm = _time_ms(lambda: torch.bmm(blk, q_bf), 20)
     del blk
-    log(f"[kernels] K7 gather_rescore d={d} {dtype} rows, {win} windows of "
-        f"{gs}: max|Δ| {err:.3g}, "
+    log(f"[{tag}] K7 gather_rescore {what}: max|Δ| {err:.3g}, "
         f"kernel {ms:.4f} ms ({nbytes / (ms * 1e6):.0f} GB/s, "
         f"{100 * bound[0] / ms:.1f}% of the bound), plain {plain:.3f} ms, bound "
         f"{bound[0]:.4f} ms ({bound[1]}); bf16 bmm of the windows gathered "
         f"beforehand {bmm:.4f} ms")
-    k8 = d % 128 != 0
-    return _entry("gather_rescore" + (f"_d{d}" if k8 else "")
-                  + ("" if gs == KC_GS else f"_gs{gs}")
-                  + ("" if dtype == "int8" else "_bf16"),
-                  "vaq_tpu_torch/csrc/gather_rescore.cu",
-                  "vaq_tpu/ops/rescore_pallas.py:" + ("39" if k8 else "105"),
+    return _entry(name, "vaq_tpu_torch/csrc/gather_rescore.cu",
+                  "vaq_tpu/ops/rescore_pallas.py:" + ("39" if d % 128 else "105"),
                   err, ms, plain, bound, None)
 
 
@@ -529,10 +564,12 @@ def _check_fast4(rng, shape, int8: bool, rounding: str) -> dict:
     return entry
 
 
-def _k1_winners_tie(codes, table, qp, q_idx, ids_a, ids_b, rtol) -> bool:
+def _k1_winners_tie(codes, table, qp, q_idx, ids_a, ids_b, rtol,
+                    scale=None) -> bool:
     """Whether rows ``ids_a`` and ``ids_b`` of queries ``q_idx`` score the
     same to ``rtol`` in f64 by K1's own formula (bf16 decode, bf16 query in
-    the dot, f32 query in ‖q‖²)."""
+    the dot, f32 query in ‖q‖²): of the score, or of ``scale``, the size of
+    the terms summed, where given."""
     c, d = table.shape
     m = codes.shape[1]
     q64 = qp.to(torch.bfloat16).double()[q_idx]
@@ -545,58 +582,147 @@ def _k1_winners_tie(codes, table, qp, q_idx, ids_a, ids_b, rtol) -> bool:
         return (x * x).sum(1) - 2 * (x * q64).sum(1) + qn
 
     a, b = score(ids_a), score(ids_b)
-    return bool(torch.all((a - b).abs() <= rtol * b.abs() + 1e-5))
+    size = b.abs() if scale is None else scale.double()
+    return bool(torch.all((a - b).abs() <= rtol * size + 1e-5))
+
+
+def _k1_terms(codes, table, qp, ids, q_block: int = 8) -> torch.Tensor:
+    """Per (query, window): ‖x̂‖² + 2·Σ_d|q_d·x̂_d| + ‖q‖² at the row
+    ``ids`` (q rounded to bf16 in the dot; rows past n decode as code 0),
+    the size of the terms K1 sums, from per-subspace tables."""
+    n, m = codes.shape
+    c, d = table.shape
+    nq = qp.shape[0]
+    dev = codes.device
+    t = table.float().view(c, m, d // m)
+    sub_norm = (t * t).sum(2).T.contiguous()                       # (M, C)
+    q_abs = qp.to(torch.bfloat16).float().abs().view(nq, m, d // m)
+    dots = torch.einsum("qml,cml->qmc", q_abs, t.abs())           # (nq, M, C)
+    qn = (qp * qp).sum(1)
+    sub = torch.arange(m, device=dev)
+    out = torch.empty(ids.shape, dtype=torch.float32, device=dev)
+    for q0 in range(0, nq, q_block):
+        blk = ids[q0:q0 + q_block].long()
+        cod = codes[blk.clamp_max(n - 1)].long()
+        cod = torch.where((blk >= n)[..., None], 0, cod)          # (qb, nw, M)
+        qi = torch.arange(q0, q0 + blk.shape[0], device=dev)[:, None, None]
+        out[q0:q0 + q_block] = (sub_norm[sub, cod].sum(2)
+                                + 2.0 * dots[qi, sub, cod].sum(2)
+                                + qn[q0:q0 + q_block, None])
+    return out
 
 
 def _check_k1(rng, shape) -> tuple[dict, torch.Tensor]:
-    """K1 against its plain version at one 1M shape (n, M, C, L, nq,
-    block_rows): scores within 1e-5 + 2^(idx_bits − 23) relative, and ids
-    differing only where the two rows tie to that in f64 (the tensor cores
-    sum the dot in another order, and the key keeps 23 − idx_bits mantissa
-    bits). The library yardstick is one bf16 GEMM of the queries against
-    the decoded rows (decoded outside the timing). Returns the entry and
-    the window scores."""
+    """K1 on seeded codes, centroids and queries at one 1M shape (n, M, C,
+    L, nq, block_rows), held against its plain version by :func:`_held_k1`.
+    Returns the entry and the window scores."""
     from vaq_tpu_torch.ops import scan_codes
     dev = torch.device(DEVICE)
     n, m, c, l, nq, br = shape
-    d = m * l
     cents = rng.standard_normal((m, c, l)).astype(np.float32)
     codes = torch.as_tensor(rng.integers(0, c, (n, m), dtype=np.uint8), device=dev)
-    qp = torch.as_tensor(rng.standard_normal((nq, d)).astype(np.float32), device=dev)
+    qp = torch.as_tensor(rng.standard_normal((nq, m * l)).astype(np.float32),
+                         device=dev)
     table = scan_codes.build_decode_table(cents, dev)
+    name = "decode_window_scan" + ("" if c == KC_C else f"_c{c}") + \
+        ("" if br == KC_BR else f"_br{br}")
+    return _held_k1(codes, table, qp, br, name)[:2]
+
+
+def _held_k1(codes, table, qp, br: int, name: str, tag: str = "kernels",
+             library: bool = True, reps: int = 20, plain_reps: int = 3,
+             of_terms: bool = False) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """K1 against its plain version on the given inputs: scores within
+    1e-5 + 2^(idx_bits − 23) relative, and ids differing only where the two
+    rows tie to that in f64 (the tensor cores sum the dot in another order,
+    and the key keeps 23 − idx_bits mantissa bits). Relative to the score
+    on seeded data, where a window's minimum is of the size of its terms;
+    with ``of_terms``, relative to the size of the terms summed
+    (:func:`_k1_terms`), as K5/K7 are held: on a real index a query's near
+    rows score far below their norms, and f32 sums in another order differ
+    by a fraction of the terms, not of the score. The library yardstick
+    (``library``) is one bf16 GEMM of the queries against the decoded rows
+    (decoded outside the timing). Returns the entry, the window scores and
+    their row ids."""
+    from vaq_tpu_torch.ops import scan_codes
+    dev = codes.device
+    n, m = codes.shape
+    c, d = table.shape
+    l, nq = d // m, qp.shape[0]
     rtol = RTOL_KERNEL + 2.0 ** ((br - 1).bit_length() - 23)
     s_k, i_k = scan_codes.decode_window_scan(codes, table, qp, br)
     s_r, i_r = scan_codes.decode_window_scan_ref(codes, table, qp, br)
     torch.cuda.synchronize()
-    assert s_k.shape == (nq, -(-n // br)) and torch.isfinite(s_k).all(), shape
-    torch.testing.assert_close(s_k, s_r, rtol=rtol, atol=1e-5)
+    assert s_k.shape == (nq, -(-n // br)) and torch.isfinite(s_k).all(), name
+    scale = None
+    if of_terms:
+        scale = _k1_terms(codes, table, qp, i_r)
+        _assert_within_terms(s_k, s_r, scale, f"K1 {name}", rtol)
+    else:
+        torch.testing.assert_close(s_k, s_r, rtol=rtol, atol=1e-5)
     diff = (i_k != i_r).nonzero()
     if len(diff):
         assert _k1_winners_tie(codes, table, qp, diff[:, 0],
                                i_k[diff[:, 0], diff[:, 1]],
-                               i_r[diff[:, 0], diff[:, 1]], rtol), \
-            f"K1 winners differ beyond a tie at {shape}"
+                               i_r[diff[:, 0], diff[:, 1]], rtol,
+                               None if scale is None
+                               else scale[diff[:, 0], diff[:, 1]]), \
+            f"K1 winners differ beyond a tie: {name}"
     err = float((s_k - s_r).abs().max())
-    ms = _time_ms(lambda: scan_codes.decode_window_scan(codes, table, qp, br), 20)
-    plain = _time_ms(lambda: scan_codes.decode_window_scan_ref(codes, table, qp, br), 3)
-    dec = table.view(c, m, l)[codes.long(), torch.arange(m, device=dev)]
-    dec_t = dec.reshape(n, d).T
-    q_bf = qp.to(torch.bfloat16)
-    library = _time_ms(lambda: torch.matmul(q_bf, dec_t), 10)
-    del dec, dec_t
+    rel = float(((s_k - s_r).abs() / s_r.abs().clamp_min(1e-30)).max())
+    of = ("" if scale is None else
+          f" ({float(((s_k - s_r).abs() / scale).max()):.3g} of the terms)")
+    del s_r, i_r, scale
+    ms = _time_ms(lambda: scan_codes.decode_window_scan(codes, table, qp, br),
+                  reps)
+    plain = _time_ms(lambda: scan_codes.decode_window_scan_ref(codes, table, qp, br),
+                     plain_reps)
+    lib_ms = None
+    if library:
+        dec = table.view(c, m, l)[codes.long(), torch.arange(m, device=dev)]
+        dec_t = dec.reshape(n, d).T
+        q_bf = qp.to(torch.bfloat16)
+        lib_ms = _time_ms(lambda: torch.matmul(q_bf, dec_t), 10)
+        del dec, dec_t
     ops = 2.0 * nq * n * d
     bound = _bound(n * m + table.numel() * 2 + qp.numel() * 4 + s_k.numel() * 4,
                    ops, "bf16")
-    log(f"[kernels] K1 decode_window_scan n={n} M={m} C={c} L={l} nq={nq} br={br}: "
-        f"max|Δscore| {err:.3g}, {len(diff)} id ties of {i_k.numel()}, kernel "
+    log(f"[{tag}] K1 decode_window_scan n={n} M={m} C={c} L={l} nq={nq} br={br}: "
+        f"max|Δscore| {err:.3g}, {rel:.3g} of the score{of}, {len(diff)} id "
+        f"ties of {i_k.numel()}, kernel "
         f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s, {100 * bound[0] / ms:.1f}% "
-        f"of the bound), plain {plain:.3f} ms, bf16 matmul {library:.3f} ms, "
-        f"bound {bound[0]:.4f} ms ({bound[1]})")
-    name = "decode_window_scan" + ("" if c == KC_C else f"_c{c}") + \
-        ("" if br == KC_BR else f"_br{br}")
+        f"of the bound), plain {plain:.3f} ms, "
+        + (f"bf16 matmul {lib_ms:.3f} ms, " if lib_ms is not None else "")
+        + f"bound {bound[0]:.4f} ms ({bound[1]})")
     return _entry(name, "vaq_tpu_torch/csrc/decode_window_scan.cu",
                   "vaq_tpu/ops/scan_pallas.py:283", err, ms, plain, bound,
-                  library), s_k
+                  lib_ms), s_k, i_k
+
+
+def _held_k2(codes, cand, rows, qp, name: str, tag: str = "kernels") -> dict:
+    """K2 against its plain version: +inf exactly where the id is −1 or
+    past n, finite elsewhere, and within 1e-5 relative."""
+    from vaq_tpu_torch.ops import scan_codes
+    n, m = codes.shape
+    d = rows.shape[1]
+    o_k = scan_codes.decode_rescore(codes, cand, rows, qp)
+    o_r = scan_codes.decode_rescore_ref(codes, cand, rows, qp)
+    torch.cuda.synchronize()
+    valid = (cand >= 0) & (cand < n)
+    assert torch.isinf(o_k[~valid]).all() and torch.isfinite(o_k[valid]).all(), name
+    torch.testing.assert_close(o_k, o_r, rtol=RTOL_KERNEL, atol=1e-5)
+    err = float((o_k[valid] - o_r[valid]).abs().max())
+    ms = _time_ms(lambda: scan_codes.decode_rescore(codes, cand, rows, qp), 20)
+    plain = _time_ms(lambda: scan_codes.decode_rescore_ref(codes, cand, rows, qp), 5)
+    n_cand = cand.numel()
+    nbytes = n_cand * (m + 4 + 4) + rows.numel() * 4 + qp.numel() * 4
+    bound = _bound(nbytes, 3.0 * n_cand * d, "f32")
+    log(f"[{tag}] K2 decode_rescore n={n} M={m} d={d} {tuple(cand.shape)} "
+        f"candidates: max|Δ| {err:.3g}, kernel {ms:.4f} ms "
+        f"({nbytes / (ms * 1e6):.0f} GB/s, {100 * bound[0] / ms:.1f}% of the "
+        f"bound), plain {plain:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return _entry(name, "vaq_tpu_torch/csrc/decode_rescore.cu",
+                  "vaq_tpu/ops/scan_pallas.py:477", err, ms, plain, bound, None)
 
 
 def _time_selection(scores: torch.Tensor, k: int) -> None:
@@ -692,25 +818,8 @@ def phase_kernels() -> list[dict]:
     cand = torch.as_tensor(rng.integers(0, KC_N, (KC_NQ, KC_KK), dtype=np.int32),
                            device=dev)
     cand[:, -3:] = -1
-    o_k = scan_codes.decode_rescore(codes, cand, rows, qp)
-    o_r = scan_codes.decode_rescore_ref(codes, cand, rows, qp)
-    torch.cuda.synchronize()
-    assert torch.isinf(o_k[:, -3:]).all() and torch.isfinite(o_k[:, :-3]).all()
-    torch.testing.assert_close(o_k, o_r, rtol=RTOL_KERNEL, atol=1e-5)
-    k2_err = float((o_k[:, :-3] - o_r[:, :-3]).abs().max())
-    k2_ms = _time_ms(lambda: scan_codes.decode_rescore(codes, cand, rows, qp), 20)
-    k2_plain = _time_ms(lambda: scan_codes.decode_rescore_ref(codes, cand, rows, qp), 5)
-    n_cand = KC_NQ * KC_KK
-    k2_bytes = n_cand * (KC_M + 4 + 4) + rows.numel() * 4 + qp.numel() * 4
-    k2_bound = _bound(k2_bytes, 3.0 * n_cand * d, "f32")
-    log(f"[kernels] K2 decode_rescore: max|Δ| {k2_err:.3g}, kernel {k2_ms:.4f} ms "
-        f"({k2_bytes / (k2_ms * 1e6):.0f} GB/s, {100 * k2_bound[0] / k2_ms:.1f}% of the "
-        f"bound), plain {k2_plain:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    kernels.append(_held_k2(codes, cand, rows, qp, "decode_rescore"))
     del codes, cand
-    kernels.append(
-        _entry("decode_rescore", "vaq_tpu_torch/csrc/decode_rescore.cu",
-               "vaq_tpu/ops/scan_pallas.py:477", k2_err, k2_ms, k2_plain,
-               k2_bound, None))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     _time_block_selection(gen)
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
@@ -1399,10 +1508,11 @@ def phase_card_vs_cpu() -> None:
     _bitalloc_card_vs_cpu("VAQ128m16min7max9var1,HEAP")
 
 
-def phase_deep100m() -> dict:
+def phase_deep100m() -> tuple[dict, list[dict]]:
     """DEEP-100M through ``scripts/capacity_100m_torch.py``'s ``run()``;
     returns the launches of K1/K2 (counted over the codes tier) and K5/K7
-    (over the visit sweep)."""
+    (over the visit sweep), and the entries of those kernels held against
+    their plain versions on the path's own resident data."""
     import importlib.util
     from vaq_tpu_torch import ivf
     spec = importlib.util.spec_from_file_location(
@@ -1411,20 +1521,9 @@ def phase_deep100m() -> dict:
             "capacity_100m_torch.py"))
     capacity = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(capacity)
-    seen = {}
-
-    def after_sweep(idx, state, qp):
-        # every structure still resident; one visit-0.1 batch split by stage
-        seen.update(codes=idx.codes is not None, decoded8=idx.decoded8 is not None,
-                    cap=state.cap, gs=ivf.pick_gs(state.cap))
-        _profile_split("deep100m", f"visit 0.1, {qp.shape[0]} queries",
-                       lambda: ivf.IVFSearcher(state, 0.10).search(idx, qp, DEEP_K),
-                       ("ivf.probe", "ivf.groupmin", "ivf.merge", "ivf.rescore",
-                        "ivf.second_stage"), reps=5)
-
     t0 = time.perf_counter()
-    out = capacity.run(n=DEEP_N, d=DEEP_D, queries=DEEP_NQ, k=DEEP_K,
-                     batch=DEEP_NQ, device=DEVICE, after_sweep=after_sweep)
+    out, idx, state, qp = capacity.run(n=DEEP_N, d=DEEP_D, queries=DEEP_NQ,
+                                       k=DEEP_K, batch=DEEP_NQ, device=DEVICE)
     wall = time.perf_counter() - t0
     st = out["stages"]
     log(f"[deep100m] wall {wall:.1f} s; stages (s): " + ", ".join(
@@ -1436,7 +1535,8 @@ def phase_deep100m() -> dict:
                 + f"avg_recall@{DEEP_K} {rec['recall_at_k']:.4f}, peak "
                 f"{rec['peak_bytes'] / 2**30:.2f} GiB")
     b = st["ivf_build"]
-    log(f"[deep100m] probe build: cap {b['cap']} (gs {seen['gs']}), live sizes "
+    gs = ivf.pick_gs(state.cap)
+    log(f"[deep100m] probe build: cap {b['cap']} (gs {gs}), live sizes "
         f"{b['sizes_min']}-{b['sizes_max']}, {b['spilled']} rows spilled "
         f"outside their 4 nearest clusters; passes: k-means "
         f"{b['centroids_s']:.2f} s, nearest clusters {b['candidates_s']:.2f} s, "
@@ -1452,17 +1552,98 @@ def phase_deep100m() -> dict:
     launches = out["launches"]
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the 100M path"
-    assert seen["codes"] and seen["decoded8"] and seen["gs"] == KD_GS, seen
-    assert b["cap"] == KD_CAP, b
+    assert idx.codes is not None and idx.decoded8 is not None
+    assert gs == KD_GS and b["cap"] == state.cap == KD_CAP, (gs, b)
     rec = {name: r["recall_at_k"] for name, r in st.items() if "recall_at_k" in r}
     assert all(0.0 < r <= 1.0 for r in rec.values()), rec
     assert rec["ivf_visit0.25"] >= rec["ivf_visit0.05"], rec
     assert rec["refine500"] >= rec["refine100"] >= rec["decoded8"], rec
-    return {"decode_window_scan_100m": launches["decode_window_scan"],
-            "decode_rescore_100m": launches["decode_rescore"],
-            f"groupmin_window_scan_d{DEEP_D}_gs{KD_GS}":
-                launches["groupmin_window_scan"],
-            f"gather_rescore_d{DEEP_D}_gs{KD_GS}": launches["gather_rescore"]}
+    # every structure still resident; one visit-0.1 batch split by stage
+    _profile_split("deep100m", f"visit 0.1, {qp.shape[0]} queries",
+                   lambda: ivf.IVFSearcher(state, 0.10).search(idx, qp, DEEP_K),
+                   ("ivf.probe", "ivf.groupmin", "ivf.merge", "ivf.rescore",
+                    "ivf.second_stage"), reps=5)
+    entries = _check_deep100m_kernels(idx, state, qp)
+    return ({"decode_window_scan_100m": launches["decode_window_scan"],
+             "decode_rescore_100m": launches["decode_rescore"],
+             f"groupmin_window_scan_d{DEEP_D}_gs{KD_GS}":
+                 launches["groupmin_window_scan"],
+             f"gather_rescore_d{DEEP_D}_gs{KD_GS}": launches["gather_rescore"]},
+            entries)
+
+
+def _check_deep100m_kernels(idx, state, qp) -> list[dict]:
+    """K1/K2/K5/K7 held against their plain versions on the 100M path's
+    resident codes and buckets, where row × M and slot × d offsets pass
+    2^31 (3.2 GB of codes, 9.8 GB of int8 rows), with the path's queries,
+    decode table, 512-row windows, k and visit-0.25 slots:
+
+    - K1 over all 100M codes and the 1024 queries, held to the size of
+      its terms (no library time: one GEMM against the 19.2 GB bf16 decode
+      and its 1024 × 100M output does not fit beside the resident tiers);
+    - K2 on the candidates the codes tier rescores (each query's top-2k
+      windows' winners), one column replaced by the database's last rows
+      and one by −1;
+    - K5 over all 1000 buckets with live slots only in the last
+      ``KD_LIVE`` clusters (n_slots 0 elsewhere, as a cluster no query
+      probes), so the f64 term sizes stay affordable; the slabs are the
+      path's scale-folded queries;
+    - K7 on m = max(2k, 16) windows a query over all 400,000 windows, one
+      column the last windows of the buckets."""
+    from vaq_tpu_torch import ivf
+    from vaq_tpu_torch.ops import scan_codes
+    dev = qp.device
+    nq = qp.shape[0]
+    n = idx.codes.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    table, rows = idx._codes_tier()
+    br = idx._codes_block_rows(DEEP_K)
+    entry, scores, ids = _held_k1(idx.codes, table, qp, br,
+                                  "decode_window_scan_100m", tag="deep100m",
+                                  library=False, reps=5, plain_reps=1,
+                                  of_terms=True)
+    entries = [entry]
+    scores = torch.where(ids >= n, torch.inf, scores)
+    _, pos = scan_codes._select_lowest(scores, 2 * DEEP_K)
+    cand = torch.gather(ids, 1, pos).contiguous()
+    del scores, ids
+    cand[:, -2] = n - 1 - torch.arange(nq, device=dev, dtype=torch.int32)
+    cand[:, -1] = -1
+    entries.append(_held_k2(idx.codes, cand, rows, qp, "decode_rescore_100m",
+                            tag="deep100m"))
+    torch.cuda.empty_cache()
+
+    ncl, cap = state.bucket_ids.shape
+    d = state.d_full
+    _, _, qcap, gs = ivf.IVFSearcher(state, 0.25).params(DEEP_K, nq)
+    q_eff = (qp / state.dim_scales[None, :]).contiguous()
+    w = 1.0 / (state.dim_scales * state.dim_scales)
+    rows_flat = state.bucket_rows.view(ncl * cap, d)
+    n_slots = torch.zeros((ncl,), dtype=torch.int32, device=dev)
+    n_slots[-KD_LIVE:] = torch.clamp(torch.round(
+        KD_SLOTS + 12.0 * torch.randn((KD_LIVE,), generator=gen, device=dev)),
+        1, qcap).to(torch.int32)
+    who = torch.randint(0, nq, (ncl, qcap), generator=gen, device=dev)
+    qsl = (-2.0 * q_eff)[who].to(torch.bfloat16)
+    del who
+    entries.append(_held_groupmin(
+        (qsl, rows_flat, w, ncl, cap, gs, n_slots),
+        f"groupmin_window_scan_d{d}_gs{gs}_100m",
+        f"the resident {ncl} buckets of {cap} int8 rows, d={d}, gs={gs}, "
+        f"qcap={qcap}", tag="deep100m", library=False, plain_reps=1))
+    del qsl
+    torch.cuda.empty_cache()
+    n_blk = ncl * cap // gs
+    m = max(2 * DEEP_K, 16)
+    wblk = torch.randint(0, n_blk, (nq, m), generator=gen, device=dev,
+                         dtype=torch.int32)
+    wblk[:, 0] = n_blk - 1 - torch.arange(nq, device=dev, dtype=torch.int32) % 64
+    entries.append(_held_rescore(
+        (q_eff, w, rows_flat, wblk, gs), f"gather_rescore_d{d}_gs{gs}_100m",
+        f"the resident buckets, d={d} int8 rows, {m} windows of {gs}",
+        tag="deep100m"))
+    torch.cuda.empty_cache()
+    return entries
 
 
 def main() -> int:
@@ -1488,7 +1669,9 @@ def main() -> int:
     phase_cli()
     phase_card_vs_cpu()
     torch.cuda.empty_cache()
-    launches.update(phase_deep100m())
+    deep_launches, deep_kernels = phase_deep100m()
+    launches.update(deep_launches)
+    kernels += deep_kernels
     for kern in kernels:
         # a d = 96, bf16 or C = 256 check is the same kernel as the main
         # path's: the longest counter name that prefixes the check's

@@ -71,12 +71,10 @@ def run(n: int = 100_000_000, d: int = 96, queries: int = 1024, k: int = 10,
         config: str = "VAQ256m32min5max8var1,HEAP",
         train_sample: int = 262_144, seed: int = 42, clusters: int = 1000,
         segments: int = 16, visits=(0.25, 0.10, 0.05), refines=(100, 500),
-        reps: int = 5, device: torch.device | str = "cuda",
-        after_sweep=None) -> dict:
-    """The whole flow on ``device``; returns the report. ``after_sweep``,
-    when given, is called as ``after_sweep(index, state, qp)`` after the
-    visit sweep, with the codes, the int8 tier and the buckets resident and
-    ``qp`` the first batch of projected queries."""
+        reps: int = 5, device: torch.device | str = "cuda"):
+    """The whole flow on ``device``. Returns (the report, the index with
+    its codes and int8 tier, the probe state, the projected queries (nq,
+    d) f32), every structure still resident."""
     dev = resolve(device)
     cuda = dev.type == "cuda"
 
@@ -163,11 +161,10 @@ def run(n: int = 100_000_000, d: int = 96, queries: int = 1024, k: int = 10,
         log(f"[100m] refine {depth} -> {k}: avg_recall@{k} "
             f"{stages[f'refine{depth}']['recall_at_k']:.4f}")
 
-    build = {}
     state = stage("ivf_build", lambda: ivf.build_ivf_streamed(
         idx, ti_cluster_num=clusters, ti_segment_num=segments,
-        balance_cap_factor=1.0, chunk_rows=chunk, stats=build))
-    stages["ivf_build"].update(build)
+        balance_cap_factor=1.0, chunk_rows=chunk))
+    stages["ivf_build"].update(state.build_stats)
     resident = {
         "codes": idx.codes.numel() * idx.codes.element_size(),
         "decoded8": idx.decoded8.numel() + 4 * idx.decoded8_norms.numel(),
@@ -191,15 +188,14 @@ def run(n: int = 100_000_000, d: int = 96, queries: int = 1024, k: int = 10,
         groupmin_window_scan=probe_scan.groupmin_window_scan.launches,
         gather_rescore=rescore.gather_rescore.launches)
     log(f"[100m] kernel launches: {launches}")
-    if after_sweep is not None:
-        after_sweep(idx, state, qp_batches[0])
-    return {"metric": f"capacity tiers at {n} x {d}d, every tier resident",
+    report = {"metric": f"capacity tiers at {n} x {d}d, every tier resident",
             "n": n, "d": d, "config": config, "queries": queries, "k": k,
             "batch": batch, "chunk": chunk, "device": str(dev),
             "device_name": (torch.cuda.get_device_name(dev) if cuda
                             else "cpu"),
             "stages": stages, "ivf_sweep": sweep,
             "resident_bytes": resident, "launches": launches}
+    return report, idx, state, torch.cat(qp_batches)
 
 
 def main() -> int:
@@ -215,7 +211,7 @@ def main() -> int:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--out", default="build/capacity_100m_torch.json")
     args = p.parse_args()
-    out = run(n=args.n, d=args.d, queries=args.queries, k=args.k,
+    out, _, _, _ = run(n=args.n, d=args.d, queries=args.queries, k=args.k,
               batch=args.batch, chunk=args.chunk, config=args.config,
               train_sample=args.train_sample, seed=args.seed)
     line = json.dumps(out)

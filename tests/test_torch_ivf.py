@@ -130,16 +130,19 @@ def d96_pair():
                                          (300, 4, 75, 4), (64, 8, 8, 8)])
 def test_fill_capacity_and_bucket_slots_match_jax(n, ncl, cap, s):
     """Skewed first choices (half the rows want cluster 0) force the
-    round-based fill, and at n = ncl·cap the spill path."""
+    round-based fill, and at n = ncl·cap the spill path; the candidates as
+    ``build_ivf`` (int64) and ``build_ivf_streamed`` (int32) give them."""
     rng = np.random.default_rng(n)
     cand = np.stack([rng.permutation(ncl)[:s] for _ in range(n)])
     cand[: n // 2, 0] = 0
-    got = ivf._fill_capacity(cand, ncl, cap)
-    np.testing.assert_array_equal(got, jivf._fill_capacity(cand, ncl, cap))
-    assert got.min() >= 0 and np.bincount(got, minlength=ncl).max() <= cap
-    for g, r in zip(ivf._bucket_slots(got, ncl, cap),
-                    jivf._bucket_slots(got, ncl, cap)):
-        np.testing.assert_array_equal(g, r)
+    want = jivf._fill_capacity(cand, ncl, cap)
+    for dtype in (torch.int64, torch.int32):
+        got = ivf._fill_capacity(torch.as_tensor(cand).to(dtype), ncl, cap)
+        np.testing.assert_array_equal(got.numpy(), want)
+        for g, r in zip(ivf._bucket_slots(got, ncl, cap),
+                        jivf._bucket_slots(want, ncl, cap)):
+            np.testing.assert_array_equal(g.numpy(), r)
+    assert want.min() >= 0 and np.bincount(want, minlength=ncl).max() <= cap
 
 
 @pytest.mark.parametrize("cap", [1, 188, 512, 513, 1500, 32768, 32769, 99000])

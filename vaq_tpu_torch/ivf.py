@@ -78,6 +78,9 @@ class IVFState:
     bucket_ids: torch.Tensor     # (ncl, cap) int32, −1 for dead slots
     sizes: torch.Tensor          # (ncl,) int32 live member counts
     dim_scales: Optional[torch.Tensor] = None  # (D,) f32 for int8 rows
+    # what build_ivf_streamed measured: its passes' wall seconds, cap, the
+    # live sizes' range and the spilled rows
+    build_stats: Optional[dict] = None
 
     @property
     def ncl(self) -> int:
@@ -135,28 +138,27 @@ def build_ivf(index, verbose: bool = False,
                 else rng.choice(n, size=ncl, replace=True))
     c0 = prefix[torch.as_tensor(init_idx, device=dev)]
     cents = kmeans.lloyd(prefix, c0, iters=cfg.kmeans_iters)
-    assign = kmeans.assign_clusters(prefix, cents).cpu().numpy()
+    assign = kmeans.assign_clusters(prefix, cents)
 
     cap = max(1, int(math.ceil(balance_cap_factor * n / ncl)))
-    if np.bincount(assign, minlength=ncl).max() > cap:
+    if int(torch.bincount(assign, minlength=ncl).max()) > cap:
         # top-S candidate clusters per row, in row blocks so the (n, ncl)
         # distance matrix never exists whole
         s_cand = min(8, ncl)
-        cand = np.concatenate([
+        cand = torch.cat([
             _select_lowest(probe_ops.cluster_sq_dists(
-                prefix[s:s + _BLOCK_ROWS], cents), s_cand)[1].cpu().numpy()
+                prefix[s:s + _BLOCK_ROWS], cents), s_cand)[1]
             for s in range(0, n, _BLOCK_ROWS)])
         assign = _fill_capacity(cand, ncl, cap)
     del prefix
-    sizes = np.bincount(assign, minlength=ncl)
-    cap = _round_cap(int(max(cap, sizes.max())))
+    sizes = torch.bincount(assign, minlength=ncl)
+    cap = _round_cap(max(cap, int(sizes.max())))
     if verbose:
         print(f"== ivf: {ncl} clusters, seg_dims={seg_dims}, cap={cap}, "
-              f"sizes min/mean/max = {sizes.min()}/{sizes.mean():.0f}/"
-              f"{sizes.max()}")
+              f"sizes min/mean/max = {int(sizes.min())}/"
+              f"{float(sizes.double().mean()):.0f}/{int(sizes.max())}")
 
     bids, _ = _bucket_slots(assign, ncl, cap)
-    bids = torch.as_tensor(bids, device=dev)
     safe = torch.clamp_min(bids, 0).reshape(-1).to(torch.int64)
     # rows deleted before the build carry +inf decoded norms: dead slots,
     # like padding
@@ -232,62 +234,12 @@ def poison_deleted(state: IVFState, ids: torch.Tensor) -> None:
     state.sizes -= torch.sum(dead, dim=1, dtype=torch.int32)
 
 
-def _fill_capacity(cand: np.ndarray, ncl: int, cap: int) -> np.ndarray:
-    """Round-based greedy capacity fill: in round j, unplaced rows claim
-    their j-th nearest cluster; each cluster admits claimants up to its
-    remaining space in row order. Returns assign (n,) with every row placed
+def _fill_capacity(cand: torch.Tensor, ncl: int, cap: int) -> torch.Tensor:
+    """Round-based greedy capacity fill (JAX ivf.py:266, on the candidates'
+    device): in round j, unplaced rows claim their j-th nearest cluster;
+    each cluster admits claimants up to its remaining space in row order
+    (stable sorts). Returns assign (n,) int64 with every row placed
     (pathological leftovers go to any cluster with space)."""
-    n, s_cand = cand.shape
-    fill = np.zeros(ncl, dtype=np.int64)
-    assign = np.full(n, -1, dtype=np.int64)
-    for j in range(s_cand):
-        un = np.flatnonzero(assign < 0)
-        if un.size == 0:
-            break
-        choice = cand[un, j].astype(np.int64)
-        order = np.argsort(choice, kind="stable")
-        sorted_choice = choice[order]
-        seg_start = np.searchsorted(sorted_choice, sorted_choice,
-                                    side="left")
-        rank = np.arange(un.size) - seg_start
-        take = rank < (cap - fill)[sorted_choice]
-        assign[un[order[take]]] = sorted_choice[take]
-        fill += np.bincount(sorted_choice[take], minlength=ncl)
-    spill = np.flatnonzero(assign < 0)
-    if spill.size:  # extremely skewed data: fill remaining space
-        space = np.maximum(cap - fill, 0)
-        slots = np.repeat(np.arange(ncl), space)
-        assign[spill] = slots[: spill.size]
-    return assign
-
-
-def _bucket_slots(assign: np.ndarray, ncl: int, cap: int):
-    """(bids (ncl, cap) row-id table, dest (n,) flat slot per row)."""
-    n = assign.shape[0]
-    bids = np.full((ncl, cap), -1, dtype=np.int32)
-    order = np.argsort(assign, kind="stable")
-    sorted_assign = assign[order]
-    seg_start = np.searchsorted(sorted_assign, sorted_assign, side="left")
-    rank = np.arange(n) - seg_start
-    bids[sorted_assign, rank] = order.astype(np.int32)
-    dest = np.empty(n, dtype=np.int64)
-    dest[order] = sorted_assign * cap + rank
-    return bids, dest
-
-
-def _round_cap(cap: int) -> int:
-    """The bucket capacity rounded up to a multiple of 512 (4096 above
-    32768): JAX's tile rule, kept because the capacity decides gs and with
-    it which windows exist."""
-    q = 512 if cap <= 32768 else 4096
-    return -(-cap // q) * q
-
-
-def _fill_capacity_device(cand: torch.Tensor, ncl: int, cap: int
-                          ) -> torch.Tensor:
-    """:func:`_fill_capacity` on a tensor, on its device: the same rounds,
-    stable sorts and spill, so the same assignment (n,) int64 as the numpy
-    version."""
     n, s_cand = cand.shape
     dev = cand.device
     fill = torch.zeros(ncl, dtype=torch.int64, device=dev)
@@ -311,10 +263,10 @@ def _fill_capacity_device(cand: torch.Tensor, ncl: int, cap: int
     return assign
 
 
-def _bucket_slots_device(assign: torch.Tensor, ncl: int, cap: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`_bucket_slots` on a tensor, on its device: (bids (ncl, cap)
-    int32, dest (n,) int64), equal to the numpy version's."""
+def _bucket_slots(assign: torch.Tensor, ncl: int, cap: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bids (ncl, cap) int32 row-id table, dest (n,) int64 flat slot per
+    row), on the assignment's device (JAX ivf.py:295)."""
     n = assign.shape[0]
     dev = assign.device
     sorted_assign, order = torch.sort(assign, stable=True)
@@ -327,6 +279,14 @@ def _bucket_slots_device(assign: torch.Tensor, ncl: int, cap: int
     return bids.view(ncl, cap), dest
 
 
+def _round_cap(cap: int) -> int:
+    """The bucket capacity rounded up to a multiple of 512 (4096 above
+    32768): JAX's tile rule, kept because the capacity decides gs and with
+    it which windows exist."""
+    q = 512 if cap <= 32768 else 4096
+    return -(-cap // q) * q
+
+
 def build_ivf_streamed(index, n_chunks_fn=None, verbose: bool = False,
                        balance_cap_factor: float = 1.05,
                        ti_cluster_num: Optional[int] = None,
@@ -334,8 +294,7 @@ def build_ivf_streamed(index, n_chunks_fn=None, verbose: bool = False,
                        sample_n: int = 2_000_000,
                        chunk_rows: int = 2_000_000,
                        free_codes_before_upload: bool = False,
-                       stage_cache: Optional[str] = None,
-                       stats: Optional[dict] = None) -> IVFState:
+                       stage_cache: Optional[str] = None) -> IVFState:
     """int8 probe buckets built from the resident codes, ``chunk_rows`` rows
     at a time (JAX ``build_ivf_streamed``, ivf.py:318-508), so device
     transients stay O(chunk) next to the (ncl·cap, D) buckets.
@@ -346,8 +305,8 @@ def build_ivf_streamed(index, n_chunks_fn=None, verbose: bool = False,
     2. each row's min(4, ncl) nearest clusters (``probe.cluster_sq_dists``,
        ties to the lower id), then the capacity fill into ``cap =
        _round_cap(ceil(balance_cap_factor · n / ncl))`` slots a cluster and
-       the slot table, both on the device (:func:`_fill_capacity_device`,
-       :func:`_bucket_slots_device`, equal to JAX's numpy steps);
+       the slot table, both on the device (:func:`_fill_capacity`,
+       :func:`_bucket_slots`, equal to JAX's numpy steps);
        tombstoned ids in [0, n) get id −1 and leave ``sizes``;
     3. every chunk decoded again, quantized to int8 with the decoded8
        tier's scales (round half to even, ±127) and scattered into the
@@ -361,7 +320,7 @@ def build_ivf_streamed(index, n_chunks_fn=None, verbose: bool = False,
     in the other, and a loaded cache needs no codes.
     ``free_codes_before_upload`` drops the codes at the end, after which
     the index serves only the probe. ``n_chunks_fn`` is unused, as in JAX.
-    ``stats``, when given, receives the wall seconds of k-means
+    A built state's ``build_stats`` holds the wall seconds of k-means
     (``centroids_s``), of the nearest clusters (``candidates_s``), of the
     capacity fill and slot table (``assign_s``) and of the int8 fill
     (``fill_s``), ``cap``, the live sizes' min and max and ``spilled``: the
@@ -369,7 +328,6 @@ def build_ivf_streamed(index, n_chunks_fn=None, verbose: bool = False,
     9)."""
     cfg, ncl = _ti_config(index.config, ti_cluster_num, ti_segment_num)
     d_full = index.total_dim
-    stats = {} if stats is None else stats
     if stage_cache and os.path.exists(stage_cache):
         z = np.load(stage_cache)
         if verbose:
@@ -383,16 +341,17 @@ def build_ivf_streamed(index, n_chunks_fn=None, verbose: bool = False,
     dev = index.device
     n = index.codes.shape[0]
     dim_scales = int8_dim_scales(index.centroids).to(dev)[:d_full]
+    stats: dict = {}
     seg_dims, cl_cents, cand = _streamed_candidates(index, cfg, ncl,
                                                     chunk_rows, sample_n,
                                                     stats)
     t0 = time.perf_counter()
     cap = _round_cap(max(1, int(math.ceil(balance_cap_factor * n / ncl))))
-    assign = _fill_capacity_device(cand, ncl, cap)
+    assign = _fill_capacity(cand, ncl, cap)
     stats["spilled"] = int(torch.sum(~torch.any(cand == assign[:, None],
                                                 dim=1)))
     del cand
-    bids, dest = _bucket_slots_device(assign, ncl, cap)
+    bids, dest = _bucket_slots(assign, ncl, cap)
     sizes = torch.bincount(assign, minlength=ncl).to(torch.int32)
     # tombstones: rows deleted before the build are dead slots (id −1) and
     # leave the live counts the visit rule uses; ids outside [0, n) name no
@@ -442,9 +401,11 @@ def build_ivf_streamed(index, n_chunks_fn=None, verbose: bool = False,
                  dim_scales=dim_scales.cpu().numpy())
         if verbose:
             print(f"== ivf-streamed: staging cached to {stage_cache}")
-    return _upload_ivf_state(index, buf, bids, sizes, cents_np, cap,
-                             seg_dims, dim_scales, ncl, d_full,
-                             free_codes_before_upload, verbose)
+    state = _upload_ivf_state(index, buf, bids, sizes, cents_np, cap,
+                              seg_dims, dim_scales, ncl, d_full,
+                              free_codes_before_upload, verbose)
+    state.build_stats = stats
+    return state
 
 
 def _sync(dev: torch.device) -> None:
