@@ -5,7 +5,7 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``, one
-``nvcc`` per source, all at once) and runs eleven phases, printing progress
+``nvcc`` per source, all at once) and runs twelve phases, printing progress
 as it goes:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc
@@ -38,7 +38,12 @@ as it goes:
    keys bit-equal to the plain version's, K3's too where the form adds to
    nearest, else within K3's packed-key tolerance with winners differing
    only on tied rows; before them, a probe of how the tensor cores round
-   K3's f32 accumulation;
+   K3's f32 accumulation; K1 and K2 also at the ScalarLUTIndex shape
+   (M' = 57, L = 1, C = 256); H1 (``popcount_dists``, xor and Jaccard) at
+   512 queries × 1M rows × 8 words and at a probe block (10 clusters of
+   4000 rows × 208 query slots), bit-equal to its plain version, beside
+   its bound (the popcounts at 16 a clock per SM, or its bytes) and the
+   ``_int_mm`` form of the same distances;
 4. the codes path at SIFT1M shape, 1M × 128-d,
    ``VAQ256m32min7max8var1,HEAP`` on seeded synthetic data: train, encode,
    search on the decoded and on the codes tier (k = 100), then search 200
@@ -81,16 +86,35 @@ as it goes:
    k-means (up to 13-bit subspaces, int32 codes) on the same 1M rows:
    train and encode times, the decoded tier's recall and refine 200 → 100
    against the main groundtruth; the codes tier must refuse it;
-9. ``[cli]``: ``vaq_tpu_torch.cli.demo_vaq.main`` on 100,000 synthetic
+9. ``[binary]``, the BitVecEngine (``vaq_tpu_torch/binary.py``) on the
+   main path's 1M rows, queries and groundtruth: ``BinaryIndex(256)``
+   trained and encoded on the host, then ``query`` k = 100 through
+   ``"auto"`` (the ``_int_mm`` form) and ``"packed"`` (kernel H1), which
+   must agree exactly, with a ``torch.profiler`` table of each, Jaccard
+   (H1), rerank ×10, ``query_naive`` L2 (equal to the groundtruth) and
+   Manhattan, ``query_filtering`` over 4 sub-vectors and its heap variant
+   on 16 queries, 1000 Hamming clusters probed at n_probe 100 and 1000 (at
+   1000 the packed scan's distances row for row, ids apart only inside the
+   k-th tie group, each id at its stated distance), H1 held against its
+   plain version on one cluster block of that state, the streaming scan
+   over the rows written as raw f32 (ids equal to the groundtruth), append
+   and delete of 10,000 rows, a save/load round trip, and
+   ``ScalarLUTIndex(256)`` on the codes tier (K1/K2 at M' = 57, L = 1)
+   and refined; each step's wall, QPS, recall and peak memory; H1's
+   launch count zeroed before each of its steps and K1/K2's before the
+   codes tier, each required to move;
+10. ``[cli]``: ``vaq_tpu_torch.cli.demo_vaq.main`` on 100,000 synthetic
    rows, ``--backend codes --refine 100,200``, its printed lines kept;
-10. one index state searched on the card and through the port's CPU plain
+11. one index state searched on the card and through the port's CPU plain
    versions at n = 20k (the decoded and codes tiers, refine, an IVF state
    built on the card and copied to the CPU at d = 128 and d = 96, that
    state mutated alike on both by add and delete, the hierarchical and the
    binary-split configs trained on the card, with the binary split's
-   training time, and a FAST state through fast4 with and without its LUT
-   quantizers and through ``"lut_gather"``); the answers must agree;
-11. ``[deep100m]``: ``scripts/capacity_100m_torch.py``'s ``run()`` at the
+   training time, a FAST state through fast4 with and without its LUT
+   quantizers and through ``"lut_gather"``, and a ``BinaryIndex(256)``
+   state through packed, matmul, Jaccard, both filters and the cluster
+   probe); the answers must agree, the binary ones identically;
+12. ``[deep100m]``: ``scripts/capacity_100m_torch.py``'s ``run()`` at the
    full DEEP-100M size, 100M × 96, ``VAQ256m32min5max8var1``, 1024 queries,
    k = 10: rows generated on the card, train, streamed encode, exact
    groundtruth@100, the codes tier (K1/K2's counters zeroed before, read
@@ -115,6 +139,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -141,7 +166,12 @@ RTOL_KERNEL = 1e-5   # f32 sums in another order: last-bit differences
 # 128-row windows.
 K1_SHAPES = ((KC_N, KC_M, KC_C, KC_L, KC_NQ, KC_BR),
              (KC_N, 64, 16, 2, KC_NQ, KC_BR),
-             (KC_N, KC_M, KC_C, KC_L, KC_NQ, 64))
+             (KC_N, KC_M, KC_C, KC_L, KC_NQ, 64),
+             (KC_N, 57, KC_C, 1, KC_NQ, KC_BR))
+# The last K1 shape is [binary]'s ScalarLUTIndex(256) codes tier: M' = 57
+# kept dimensions of one subspace each (L = 1), C = 256, 128-row windows; a
+# 57-byte codes row is no multiple of 4 or 16 bytes and the depth pads to 64.
+LUT_M = K1_SHAPES[3][1]
 # (width, k) of the port's selections at 1M rows, 512 queries: the rescored
 # top-k of 2k candidates (codes, decoded, FAST, IVF second stage), the IVF
 # row pick (200 windows of 8), FAST's window pick (3912 windows), the codes
@@ -185,7 +215,7 @@ N_ADD, N_DEL, N_SELF = 10_000, 10_000, 256
 # to 13 bits); at 20k also the binary-split k-means on a config with a few
 # 9-bit subspaces: it runs one 2-means a node, ~17 ms each on the card, so
 # 13 bits (~8k nodes a subspace) waits for the level-batched form (ROADMAP
-# queue 1)
+# queue 2b, item 13)
 WIDE_METHOD = "VAQ256m32min2max13var1,HEAP"
 BINARY_METHOD = "VAQ96m16min5max9var1,HEAP"
 # [cli]: demo_vaq's flags. At 100k rows the codes tier has windows of
@@ -196,9 +226,27 @@ CLI_ARGS = ["--synthetic", "100000", "--method", METHOD, "--refine", "100,200",
 # The same command under VAQ_TPU_PLATFORM=cpu reads avg_recall 0.5788
 # (refine 100) and 0.8131 (refine 200); the card must come within 0.02.
 CLI_MIN_RECALL = (0.5588, 0.7931)
+# [binary]: the BitVecEngine at the main path's 1M × 128 rows, queries and
+# groundtruth: BinaryIndex(256) (demo_binary.cpp's default budget, bench.py:567)
+# trained and encoded on all rows, k = 100; the progressive filters over 4
+# sub-vectors, the heap variant on 16 queries; 1000 Hamming clusters of 25
+# k-means iterations probed at 100 and 1000; the streaming scan in chunks of
+# 262,144 rows; 10,000 rows appended, 10,000 deleted.
+BIN_BUDGET, BIN_SUBVECTORS, BIN_HEAP_NQ = 256, 4, 16
+BIN_CLUSTERS, BIN_ITERS, BIN_PROBES = 1000, 25, (100, 1000)
+BIN_STREAM_ROWS = 262_144
+# H1 at 512 queries × the 1M rows' 8 words, and at a probe block: 10
+# clusters of 4000 rows (a more skewed clustering than [binary]'s, whose
+# largest of 1000 holds about 2200; [binary] checks its own block too)
+# against the 208 query slots pick_qcap(1000, 100, 1000) gives.
+KH_W, KH_PROBE = 8, (10, 208, 4000)
 # Published H100 SXM peaks (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# H1's popcounts: 16 results a clock per SM for compute capability 9.0 (the
+# CUDA C++ Programming Guide's arithmetic-instruction throughput table), at
+# the card's maximum SM clock (nvidia-smi clocks.max.sm).
+POPC_PER_CLOCK_PER_SM = 16
 
 
 def log(msg: str) -> None:
@@ -258,11 +306,22 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+@functools.cache
+def _popc_per_s() -> float:
+    """The card's popcount rate: POPC_PER_CLOCK_PER_SM × SMs × its maximum
+    SM clock."""
+    mhz = float(_run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                      "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
 def _bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     """The least time (ms) the card could take: bytes over the memory rate
     or operations over the peak rate of their type, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    rate = _popc_per_s() if kind == "popc" else PEAK_OPS_PER_S[kind]
+    t_ops = ops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -624,7 +683,8 @@ def _check_k1(rng, shape) -> tuple[dict, torch.Tensor]:
     qp = torch.as_tensor(rng.standard_normal((nq, m * l)).astype(np.float32),
                          device=dev)
     table = scan_codes.build_decode_table(cents, dev)
-    name = "decode_window_scan" + ("" if c == KC_C else f"_c{c}") + \
+    name = "decode_window_scan" + (f"_c{c}" if c != KC_C else
+                                   f"_m{m}" if m != KC_M else "") + \
         ("" if br == KC_BR else f"_br{br}")
     return _held_k1(codes, table, qp, br, name)[:2]
 
@@ -725,6 +785,54 @@ def _held_k2(codes, cand, rows, qp, name: str, tag: str = "kernels") -> dict:
                   "vaq_tpu/ops/scan_pallas.py:477", err, ms, plain, bound, None)
 
 
+def _held_h1(q, x, op: str, name: str, tag: str = "kernels") -> dict:
+    """H1 against its plain version on the given words: bit-equal. Timed
+    beside its bound (the popcounts over the card's popc rate, or the words
+    read and the output written over the memory rate) and beside the
+    library form: the words unpacked to int8 0/1 (outside the timing), one
+    ``torch._int_mm`` and ``pop(q) + pop(x) − 2·inner`` (Jaccard: the same
+    counts through JAX's f32 expression), which must equal H1 too."""
+    from vaq_tpu_torch.binary import _unpack_words
+    from vaq_tpu_torch.ops import hamming
+    b, nq, w = q.shape
+    n = x.shape[1]
+    got = hamming.popcount_dists(q, x, op)
+    ref = hamming.popcount_dists_ref(q, x, op)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), f"H1 {name}: differs from its plain version"
+    err = float((got.double() - ref.double()).abs().max())
+    del ref
+    ms = _time_ms(lambda: hamming.popcount_dists(q, x, op), 10)
+    plain = _time_ms(lambda: hamming.popcount_dists_ref(q, x, op), 2)
+    lib_ms = None
+    if b == 1:
+        q01 = _unpack_words(q[0], w * 32)
+        x01 = _unpack_words(x[0], w * 32)
+        q_pop = q01.sum(1, dtype=torch.int32)[:, None]
+        x_pop = x01.sum(1, dtype=torch.int32)[None, :]
+
+        def library():
+            inner = torch._int_mm(q01, x01.T)
+            if op == "xor":
+                return q_pop + x_pop - 2 * inner
+            return hamming.jaccard_from_counts(inner, q_pop + x_pop - inner)
+
+        assert torch.equal(library()[None], got), f"H1 {name}: _int_mm form"
+        lib_ms = _time_ms(library, 5)
+        del q01, x01
+    pairs = b * nq * n
+    ops = pairs * w + (b * (nq + n) * w if op == "jaccard" else 0)
+    bound = _bound(b * (nq + n) * w * 4 + pairs * 4, ops, "popc")
+    log(f"[{tag}] H1 popcount_dists {op} B={b} nq={nq} n={n} W={w}: bit-equal "
+        f"to its plain version, kernel {ms:.3f} ms ({ops / ms / 1e9:.2f}e12 "
+        f"popc/s, {100 * bound[0] / ms:.1f}% of the "
+        f"bound at {_popc_per_s() / 1e12:.2f}e12 popc/s), plain {plain:.3f} ms, "
+        + (f"_int_mm form {lib_ms:.3f} ms, " if lib_ms is not None else "")
+        + f"bound {bound[0]:.4f} ms ({bound[1]})")
+    return _entry(name, "vaq_tpu_torch/csrc/hamming_scan.cu",
+                  "vaq_tpu/binary.py:121", err, ms, plain, bound, lib_ms)
+
+
 def _time_selection(scores: torch.Tensor, k: int) -> None:
     """The tie-exact selection (``scan_codes._select_lowest``) and each of
     its forms beside ``torch.topk`` on one (nq, width) score matrix; all
@@ -819,7 +927,30 @@ def phase_kernels() -> list[dict]:
                            device=dev)
     cand[:, -3:] = -1
     kernels.append(_held_k2(codes, cand, rows, qp, "decode_rescore"))
-    del codes, cand
+    del codes
+    # K2 at the ScalarLUTIndex shape (M' = 57, L = 1), the same candidates
+    cents57 = rng.standard_normal((LUT_M, KC_C, 1)).astype(np.float32)
+    codes57 = torch.as_tensor(rng.integers(0, KC_C, (KC_N, LUT_M), dtype=np.uint8),
+                              device=dev)
+    qp57 = torch.as_tensor(rng.standard_normal((KC_NQ, LUT_M)).astype(np.float32),
+                           device=dev)
+    kernels.append(_held_k2(codes57, cand, scan_codes.build_decode_rows(cents57, dev),
+                            qp57, f"decode_rescore_m{LUT_M}"))
+    del codes57, cand
+    # H1 at the flat scan's shape (xor and jaccard) and at the probe's block
+    words = rng.integers(0, 2 ** 32, (KC_N + KC_NQ, KH_W), dtype=np.uint32)
+    x = torch.as_tensor(words[:KC_N].view(np.int32), device=dev)[None]
+    q = torch.as_tensor(words[KC_N:].view(np.int32), device=dev)[None]
+    kernels.append(_held_h1(q, x, "xor", "popcount_dists"))
+    kernels.append(_held_h1(q, x, "jaccard", "popcount_dists_jaccard"))
+    del x, q
+    cb, qcap, cap = KH_PROBE
+    words = rng.integers(0, 2 ** 32, (cb, qcap + cap, KH_W), dtype=np.uint32)
+    kernels.append(_held_h1(
+        torch.as_tensor(words[:, :qcap].view(np.int32), device=dev),
+        torch.as_tensor(words[:, qcap:].view(np.int32), device=dev), "xor",
+        "popcount_dists_probe"))
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     _time_block_selection(gen)
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
@@ -1299,6 +1430,217 @@ def phase_wide(ctx: dict) -> None:
         raise AssertionError("the codes tier served >8-bit codes")
 
 
+def _launched(counter, what: str, fn, tag: str = "binary"):
+    """Run ``fn`` with the kernel wrapper ``counter``'s launch count set to
+    0 just before; fail unless it moved. Returns (result, launches)."""
+    counter.launches = 0
+    out = fn()
+    n = counter.launches
+    assert n > 0, f"{what}: {counter.__name__} was never launched"
+    log(f"[{tag}] {what}: {counter.__name__} launches {n}")
+    return out, n
+
+
+def _check_probe_answer(bidx, queries, d_p, i_p, d_f, i_f) -> int:
+    """The probe over every cluster against the flat packed scan: equal
+    distances row for row, the same ids below each row's k-th distance, and
+    every returned id at its stated Hamming distance (recomputed from the
+    words). Returns how many entries' ids differ (all in k-th tie groups)."""
+    from vaq_tpu_torch.ops import hamming
+    np.testing.assert_array_equal(d_p, d_f)
+    for q in range(d_p.shape[0]):
+        inside = d_f[q] < d_f[q, -1]
+        assert set(i_p[q][inside]) == set(i_f[q][inside]), q
+    qw = bidx._query_words(queries).long()
+    rows = bidx.packed[torch.as_tensor(i_p, device=DEVICE).long()]
+    true = hamming._popcount(rows ^ qw[:, None, :]).sum(2)
+    assert torch.equal(true.cpu(), torch.as_tensor(d_p, dtype=torch.int64))
+    return int((i_p != i_f).sum())
+
+
+def phase_binary(ctx: dict) -> tuple[dict, list[dict]]:
+    """The BitVecEngine at the main path's 1M × 128 rows, 1000 queries and
+    exact groundtruth@100: BinaryIndex(256) searched every way, the Hamming
+    cluster probe, the streaming scan, CRUD and ScalarLUTIndex(256) on the
+    codes tier. Returns the launches of H1 (over the searches) and of K1/K2
+    (over the ScalarLUT codes tier), and H1 held against its plain version
+    on one cluster block of the path's own state."""
+    from vaq_tpu_torch import binary, metrics
+    from vaq_tpu_torch.ops import hamming, scan_codes
+    base, queries, gt = ctx["base"], ctx["queries"], ctx["gt"]
+    dev = torch.device(DEVICE)
+    h1 = hamming.popcount_dists
+    bidx = binary.BinaryIndex(bit_budget=BIN_BUDGET, device=dev)
+    _step("train BinaryIndex(256) on the 1M rows (host numpy)",
+          lambda: bidx.train(base, verbose=True), tag="binary")
+    _step("encode (host numpy; packed, db01, db_pop to the card)",
+          lambda: bidx.encode(base), tag="binary")
+    used = int((bidx.bits > 0).sum())
+    log(f"[binary] {used} dimensions used, {bidx.total_bits} bits, "
+        f"{bidx.packed.shape[1]} words a row; packed "
+        f"{bidx.packed.numel() * 4 / 1e6:.0f} MB, db01 "
+        f"{bidx.db01.numel() / 1e6:.0f} MB")
+    assert bidx.total_bits == BIN_BUDGET and bidx.packed.shape == (N_MAIN, KH_W)
+    recall = {}
+
+    def search(what, fn, nq=NQ_MAIN, counted=True):
+        run = (lambda: _step(what, fn, nq, "binary"))
+        out, n = _launched(h1, what, run) if counted else (run(), 0)
+        if out[1].shape[1] == 100 and out[1].shape[0] == NQ_MAIN:
+            recall[what] = metrics.avg_recall(out[1], gt, 100)
+            log(f"[binary] {what}: avg_recall@100 {recall[what]:.4f}")
+        return out, n
+
+    h1_launches = h1.launches = 0
+    _step("query auto (matmul, _int_mm) k=100, first call",
+          lambda: bidx.query(queries, 100), NQ_MAIN, "binary")
+    (d_a, i_a), _ = search("query auto (matmul, _int_mm) k=100",
+                           lambda: bidx.query(queries, 100), counted=False)
+    assert h1.launches == 0, "the matmul backend launched H1"
+    (d_p, i_p), n = search("query packed (H1) k=100",
+                           lambda: bidx.query(queries, 100, backend="packed"))
+    h1_launches += n
+    np.testing.assert_array_equal(d_a, d_p)
+    np.testing.assert_array_equal(i_a, i_p)
+    assert d_p.dtype == np.int32 and (np.diff(d_p, axis=1) >= 0).all()
+    tie = float(np.mean(d_p[:, 99] == d_p[:, 98]))
+    log(f"[binary] auto and packed: identical ids and distances; the 100th "
+        f"place ties the 99th in {tie:.3f} of the rows")
+    for backend in ("packed", "matmul"):
+        _profile_split("binary", f"query {backend} k=100, {NQ_MAIN} queries",
+                       lambda: bidx.query(queries, 100, backend=backend), (),
+                       reps=3)
+    (d_j, i_j), n = search("query jaccard (H1) k=100",
+                           lambda: bidx.query(queries, 100, metric="jaccard"))
+    h1_launches += n
+    assert d_j.dtype == np.float32 and ((d_j >= 0) & (d_j <= 1)).all()
+    (d_r, i_r), _ = search("query_rerank factor=10 (matmul, then exact L2)",
+                           lambda: bidx.query_rerank(queries, base, 100, factor=10),
+                           counted=False)
+    assert recall["query_rerank factor=10 (matmul, then exact L2)"] >= \
+        recall["query packed (H1) k=100"]
+    (d_l2, i_l2), _ = search("query_naive l2", lambda: bidx.query_naive(
+        queries, base, 100), counted=False)
+    np.testing.assert_array_equal(i_l2, gt)
+    log("[binary] query_naive l2 ids equal the groundtruth")
+    (d_m, i_m), _ = search("query_naive manhattan", lambda: bidx.query_naive(
+        queries, base, 100, metric="manhattan"), counted=False)
+    assert np.isfinite(d_m).all() and (np.diff(d_m, axis=1) >= 0).all()
+    (d_f, i_f), n = search(f"query_filtering {BIN_SUBVECTORS} sub-vectors k=100",
+                           lambda: bidx.query_filtering(queries, 100,
+                                                        BIN_SUBVECTORS))
+    h1_launches += n
+    assert (d_f < binary.FAR).all()
+    (sub, i_h), n = search(f"query_filtering_heap {BIN_SUBVECTORS} sub-vectors "
+                           f"k=100, {BIN_HEAP_NQ} queries",
+                           lambda: bidx.query_filtering_heap(
+                               queries[:BIN_HEAP_NQ], 100, BIN_SUBVECTORS),
+                           nq=BIN_HEAP_NQ)
+    h1_launches += n
+    assert sub.shape == (BIN_HEAP_NQ, 100, BIN_SUBVECTORS)
+    keys = [tuple(v) for v in sub[0]]
+    assert keys == sorted(keys)
+
+    state = _step(f"build_hamming_clusters {BIN_CLUSTERS} clusters, "
+                  f"{BIN_ITERS} iterations", lambda: binary.build_hamming_clusters(
+                      bidx, base, BIN_CLUSTERS, iters=BIN_ITERS, device=dev),
+                  tag="binary")
+    sizes = state.sizes.cpu().numpy()
+    log(f"[binary] clusters: cap {state.cap} (mean {sizes.mean():.0f}, min "
+        f"{sizes.min()}), buckets {state.bucket_words.numel() * 4 / 1e6:.0f} MB")
+    for n_probe in BIN_PROBES:
+        (d_c, i_c), n = search(f"query_hamming_clusters n_probe={n_probe} k=100",
+                               lambda: binary.query_hamming_clusters(
+                                   bidx, state, queries, 100, n_probe))
+        h1_launches += n
+    differ = _check_probe_answer(bidx, queries, d_c, i_c, d_p, i_p)
+    log(f"[binary] n_probe={BIN_PROBES[-1]}: distances equal the packed scan's "
+        f"row for row; {differ} of {i_c.size} ids differ, all inside the "
+        f"k-th distance's tie group")
+    # H1 on one cluster block of this state: the 208 query slots of visit
+    # n_probe 100 against the first clusters' buckets
+    qcap = KH_PROBE[1]
+    cb = min(BIN_CLUSTERS, max(1, binary.PROBE_BLOCK_ELEMS // (qcap * state.cap)))
+    qw = bidx._query_words(queries[:qcap])
+    entry = _held_h1(qw[None].expand(cb, qcap, KH_W).contiguous(),
+                     state.bucket_words[:cb].contiguous(), "xor",
+                     "popcount_dists_probe_1m", tag="binary")
+    del state
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "base.f32")
+        base.astype(np.float32).tofile(path)
+        d_s, i_s = _step(f"query_naive_streaming batch_rows={BIN_STREAM_ROWS} "
+                         f"(raw f32 file)", lambda: binary.query_naive_streaming(
+                             path, D_MAIN, queries, 100,
+                             batch_rows=BIN_STREAM_ROWS, device=dev),
+                         NQ_MAIN, "binary")
+    np.testing.assert_array_equal(i_s, gt)
+    log("[binary] query_naive_streaming ids equal the groundtruth")
+
+    rng = np.random.default_rng(SEED)
+    x_new = base[:N_ADD] + 0.01 * rng.standard_normal(
+        (N_ADD, D_MAIN)).astype(np.float32)
+    new_ids = _step(f"append {N_ADD} rows", lambda: bidx.append(x_new),
+                    tag="binary")
+    np.testing.assert_array_equal(new_ids, np.arange(N_MAIN, N_MAIN + N_ADD))
+    np.testing.assert_array_equal(bidx.get_bitv(new_ids[:N_SELF]),
+                                  bidx.encode_queries(x_new[:N_SELF]))
+    (d_self, _), n = _launched(h1, "appended rows as queries", lambda: bidx.query(
+        x_new[:N_SELF], 1, backend="packed"))
+    h1_launches += n
+    assert (d_self[:, 0] == 0).all()
+    dead = rng.choice(N_MAIN + N_ADD, N_DEL, replace=False)
+    _step(f"delete {N_DEL} ids", lambda: bidx.delete(dead), tag="binary")
+    assert bidx.n_rows == N_MAIN and bidx.packed.shape[0] == N_MAIN
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "binary.npz")
+        _step("save", lambda: bidx.save(path), tag="binary")
+        back = _step("load", lambda: binary.BinaryIndex.load(path, device=dev),
+                     tag="binary")
+    assert torch.equal(back.packed, bidx.packed) and torch.equal(back.db01, bidx.db01)
+    (d_b, i_b), n = _launched(h1, "query packed after the round trip",
+                              lambda: back.query(queries, 100, backend="packed"))
+    h1_launches += n
+    d_o, i_o = bidx.query(queries, 100, backend="packed")
+    np.testing.assert_array_equal(d_b, d_o)
+    np.testing.assert_array_equal(i_b, i_o)
+
+    lut = binary.ScalarLUTIndex(BIN_BUDGET, device=dev)
+    _step("ScalarLUTIndex(256) train (host numpy)",
+          lambda: lut.train(base, verbose=True), tag="binary")
+    _step("ScalarLUTIndex encode", lambda: lut.encode(base), tag="binary")
+    vq = lut._vaq
+    log(f"[binary] ScalarLUT: M' = {vq.highest_subs}, L = {vq.subs_len}, "
+        f"bits {vq.bits.tolist()}, windows of {vq._codes_block_rows(100)} rows")
+    assert (vq.highest_subs, vq.subs_len) == (LUT_M, 1), \
+        "phase 3 checked K1/K2 at another M'"
+    _step("ScalarLUT query codes k=100, first call",
+          lambda: lut.query(queries, 100, backend="codes"), NQ_MAIN, "binary")
+    scan_codes.decode_rescore.launches = 0
+    (d_u, i_u), k1 = _launched(scan_codes.decode_window_scan,
+                               "ScalarLUT query codes k=100 (K1/K2)",
+                               lambda: _step("ScalarLUT query codes k=100",
+                                             lambda: lut.query(queries, 100,
+                                                               backend="codes"),
+                                             NQ_MAIN, "binary"))
+    k2 = scan_codes.decode_rescore.launches
+    assert k2 > 0, "the ScalarLUT codes tier never launched K2"
+    r_lut = metrics.avg_recall(i_u, gt, 100)
+    d_q, i_q = _step("ScalarLUT query_refine factor=10",
+                     lambda: lut.query_refine(queries, base, 100), NQ_MAIN, "binary")
+    r_q = metrics.avg_recall(i_q, gt, 100)
+    log(f"[binary] ScalarLUT avg_recall@100 codes {r_lut:.4f}, refined "
+        f"{r_q:.4f}")
+    assert np.isfinite(d_u).all() and (i_u >= 0).all() and r_q >= r_lut
+    launches = {"popcount_dists": h1_launches,
+                f"decode_window_scan_m{LUT_M}": k1,
+                f"decode_rescore_m{LUT_M}": k2}
+    log(f"[binary] kernel launches during the binary path: {launches}")
+    return launches, [entry]
+
+
 def phase_cli() -> None:
     """demo_vaq on the card, its lines printed under [cli]."""
     from vaq_tpu_torch.cli import demo_vaq
@@ -1466,6 +1808,43 @@ def _fast_card_vs_cpu() -> None:
         np.testing.assert_allclose(dg, dc, rtol=1e-4)
 
 
+def _binary_card_vs_cpu() -> None:
+    """One BinaryIndex(256) state at 20k, trained on the host, searched on
+    the card and on the CPU: packed, matmul, Jaccard, both filters and the
+    cluster probe (built on the card, copied to the CPU) return identical
+    ids and distances."""
+    from vaq_tpu_torch import binary, data
+    from vaq_tpu_torch.convert import (binary_index_from_numpy,
+                                       hamming_clusters_from_numpy)
+    base, queries = data.make_anisotropic_gaussian(N_CMP, D_MAIN, NQ_CMP,
+                                                   seed=SEED + 4)
+    gpu = binary.BinaryIndex(bit_budget=BIN_BUDGET, device=DEVICE).train(base)
+    gpu.encode(base)
+    cpu = binary_index_from_numpy(*gpu.state(), "cpu")
+    st = binary.build_hamming_clusters(gpu, base, 64, iters=10, device=DEVICE)
+    st_cpu = hamming_clusters_from_numpy({
+        "centroids": st.centroids, "cap": st.cap,
+        "bucket_words": st.bucket_words.cpu().numpy().view(np.uint32),
+        "bucket_ids": st.bucket_ids.cpu().numpy(),
+        "sizes": st.sizes.cpu().numpy()}, "cpu")
+    runs = {
+        "packed": lambda i: i.query(queries, 100, backend="packed"),
+        "matmul": lambda i: i.query(queries, 100, backend="matmul"),
+        "jaccard": lambda i: i.query(queries, 100, metric="jaccard"),
+        "filtering": lambda i: i.query_filtering(base[:NQ_CMP], 10, 4),
+        "filtering_heap": lambda i: i.query_filtering_heap(base[:NQ_CMP], 10, 4),
+    }
+    for n_probe in (4, 64):
+        runs[f"probe n_probe={n_probe}"] = (
+            lambda i, n_probe=n_probe: binary.query_hamming_clusters(
+                i, st if i is gpu else st_cpu, queries, 100, n_probe))
+    for what, run in runs.items():
+        g, c = run(gpu), run(cpu)
+        for a, b in zip(g, c):
+            np.testing.assert_array_equal(a, b)
+        log(f"[cmp] binary {what}: ids and distances identical card vs cpu")
+
+
 def phase_card_vs_cpu() -> None:
     """One converted state searched on the card and on the CPU."""
     import vaq_tpu_torch as vt
@@ -1506,6 +1885,7 @@ def phase_card_vs_cpu() -> None:
     _wide_card_vs_cpu(WIDE_METHOD, "hierarchical_kmeans")
     _wide_card_vs_cpu(BINARY_METHOD, "binary_kmeans")
     _bitalloc_card_vs_cpu("VAQ128m16min7max9var1,HEAP")
+    _binary_card_vs_cpu()
 
 
 def phase_deep100m() -> tuple[dict, list[dict]]:
@@ -1664,6 +2044,10 @@ def main() -> int:
     launches.update(phase_fast_path(ctx))
     torch.cuda.empty_cache()
     phase_wide(ctx)
+    torch.cuda.empty_cache()
+    bin_launches, bin_kernels = phase_binary(ctx)
+    launches.update(bin_launches)
+    kernels += bin_kernels
     del ctx
     torch.cuda.empty_cache()
     phase_cli()

@@ -1,6 +1,8 @@
 """The port's ``demo_vaq`` CLI (vaq_tpu_torch/cli/demo_vaq.py) against the
 JAX package's (vaq_tpu/cli/demo_vaq.py), both on the CPU
-(``VAQ_TPU_PLATFORM=cpu``), flag for flag on the same synthetic data.
+(``VAQ_TPU_PLATFORM=cpu``), flag for flag on the same synthetic data; then
+``demo_binary`` and ``demo_bitvecengine`` likewise. The binary engine trains
+on the host in both packages, so their printed lines are equal outright.
 
 Each package trains its own index, so the recall lines agree within 0.05
 (the training tolerance of tests/test_torch_kmeans_wide.py), with the flat
@@ -17,8 +19,11 @@ import pytest
 import torch
 
 import vaq_tpu
+from vaq_tpu.cli import demo_binary as jdemo_binary
+from vaq_tpu.cli import demo_bitvecengine as jdemo_bve
 from vaq_tpu.cli import demo_vaq as jdemo
-from vaq_tpu_torch.cli import demo_vaq, platform_device
+from vaq_tpu_torch.cli import (demo_binary, demo_bitvecengine, demo_vaq,
+                               platform_device)
 from vaq_tpu_torch.errors import ConfigError, DeviceError
 
 torch.set_num_threads(2)  # six test workers share the host
@@ -138,3 +143,80 @@ def test_parser_has_every_jax_flag():
         return sorted(o for a in parser._actions for o in a.option_strings)
 
     assert flags(demo_vaq.build_parser()) == flags(jdemo.build_parser())
+
+
+BINARY_FLAGS = ["--synthetic", "4000", "--queries-size", "20", "--k", "10"]
+
+
+def bare_lines(out):
+    """The printed lines but the timing ones ("== ...")."""
+    return [s for s in out.splitlines() if "==" not in s]
+
+
+@pytest.mark.parametrize("extra", [[], ["--backend", "packed"],
+                                   ["--rerank", "10"],
+                                   ["--encoding", "simple", "--bit-budget",
+                                    "64"]],
+                         ids=["auto", "packed", "rerank", "simple"])
+def test_demo_binary_matches_jax(cpu_env, capsys, tmp_path, extra):
+    """The same lines, recall lines included, digit for digit; --save and
+    --result written by the port and read back by JAX."""
+    save, result = str(tmp_path / "b.npz"), str(tmp_path / "r.csv")
+    rc_t, got_t, out_t = run(demo_binary.main, BINARY_FLAGS + extra + [
+        "--save", save, "--result", result], capsys)
+    rc_j, got_j, out_j = run(jdemo_binary.main, BINARY_FLAGS + extra, capsys)
+    assert rc_t == rc_j == 0
+    assert all(len(got_t[m]) == 1 for m in METRICS), out_t
+    assert bare_lines(out_t) == bare_lines(out_j)
+    rc, got, out = run(jdemo_binary.main, BINARY_FLAGS + extra + [
+        "--save", save], capsys)                    # JAX loads the port's
+    assert rc == 0 and bare_lines(out) == bare_lines(out_j)
+    lab = np.loadtxt(result, delimiter=",", dtype=np.int64)
+    assert lab.shape == (20, 10)
+
+
+@pytest.mark.parametrize("mode,metric", [
+    (0, "hamming"), (0, "jaccard"), (1, "hamming"), (2, "hamming"),
+    (3, "hamming"), (4, "l2"), (4, "manhattan"), (5, "l2"), (6, "l2"),
+    (9, "l2")])
+def test_demo_bitvecengine_matches_jax(cpu_env, capsys, mode, metric):
+    argv = BINARY_FLAGS + ["--mode", str(mode), "--metric", metric,
+                           "--iteration", "2"]
+    rc_t, got_t, out_t = run(demo_bitvecengine.main, argv, capsys)
+    rc_j, got_j, out_j = run(jdemo_bve.main, argv, capsys)
+    assert rc_t == rc_j == 0
+    assert all(len(got_t[m]) == 1 for m in METRICS), out_t
+    assert bare_lines(out_t) == bare_lines(out_j)
+    if mode in (4, 5, 6, 9) and metric == "l2":     # exact: recall 1
+        assert got_t["precision(avg_recall)"] == [1.0]
+
+
+def test_demo_bitvecengine_writes_groundtruth(cpu_env, capsys, tmp_path):
+    from vaq_tpu_torch import io as port_io
+    path = str(tmp_path / "gt.ivecs")
+    rc, got, out = run(demo_bitvecengine.main, BINARY_FLAGS + [
+        "--write-groundtruth", path], capsys)
+    assert rc == 0 and f"groundtruth written to {path}" in out
+    assert port_io.read_ivecs(path).shape == (20, 10)
+
+
+@pytest.mark.parametrize("mode", [7, 8])
+def test_demo_bitvecengine_sharded_modes_raise(cpu_env, mode):
+    """Modes 7/8 are JAX's sharded exact search over a device mesh; the
+    port's parallel package does not exist yet, so they refuse rather than
+    answer with a one-device search."""
+    with pytest.raises(ConfigError, match="parallel"):
+        demo_bitvecengine.main(BINARY_FLAGS + ["--mode", str(mode)])
+
+
+def test_binary_parsers_take_the_jax_flags():
+    """Every flag JAX's binary demos define (read from their sources) the
+    port's parsers define too."""
+    import inspect
+    for port, jax_mod in ((demo_binary, jdemo_binary),
+                          (demo_bitvecengine, jdemo_bve)):
+        want = sorted(set(re.findall(r'add_argument\("(--[a-z-]+)"',
+                                     inspect.getsource(jax_mod))))
+        got = sorted(o for a in port.build_parser()._actions
+                     for o in a.option_strings if o.startswith("--"))
+        assert [f for f in got if f != "--help"] == want

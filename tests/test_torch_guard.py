@@ -49,6 +49,9 @@ def test_import_loads_neither_jax_nor_vaq_tpu_and_sets_precision():
         "import json, sys, torch\n"
         "import vaq_tpu_torch, vaq_tpu_torch.convert, vaq_tpu_torch.data\n"
         "import vaq_tpu_torch.ops.scan_codes, vaq_tpu_torch.ops.scan_lut\n"
+        "import vaq_tpu_torch.binary, vaq_tpu_torch.ops.hamming\n"
+        "import vaq_tpu_torch.cli.demo_binary\n"
+        "import vaq_tpu_torch.cli.demo_bitvecengine\n"
         "import runpy\n"
         "runpy.run_path('scripts/capacity_100m_torch.py')\n"
         "print(json.dumps({\n"
@@ -59,7 +62,8 @@ def test_import_loads_neither_jax_nor_vaq_tpu_and_sets_precision():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert not [m for m in out["mods"] if _forbidden(m)]
-    assert "vaq_tpu_torch.vaq" in out["mods"]
+    assert {"vaq_tpu_torch.vaq", "vaq_tpu_torch.binary",
+            "vaq_tpu_torch.ops.hamming"} <= set(out["mods"])
     assert out["tf32"] is False and out["cudnn_tf32"] is False
     assert out["prec"] == "highest"
 
@@ -100,7 +104,7 @@ def _entry_points(tmp_path):
     import numpy as np
 
     import vaq_tpu_torch as vt
-    from vaq_tpu_torch import convert, data, pca
+    from vaq_tpu_torch import binary, convert, data, pca
     from vaq_tpu_torch.ops import distances, scan_codes
 
     x = np.random.default_rng(0).standard_normal((300, 16)).astype(np.float32)
@@ -113,6 +117,13 @@ def _entry_points(tmp_path):
                "bucket_ids": np.full((2, 512), -1, np.int32),
                "sizes": np.zeros(2, np.int32),
                "dim_scales": np.ones(16, np.float32)}
+    bidx = binary.BinaryIndex(bit_budget=24, device="cpu").train(x).encode(x)
+    bidx.save(str(tmp_path / "b.npz"))
+    x.tofile(str(tmp_path / "x.bin"))
+    clusters = {"centroids": np.zeros((2, 16), np.float32), "cap": 4,
+                "bucket_words": np.zeros((2, 4, 1), np.uint32),
+                "bucket_ids": np.full((2, 4), -1, np.int32),
+                "sizes": np.zeros(2, np.int32)}
     return {
         "VAQIndex": lambda: vt.VAQIndex(idx.config),
         "VAQIndex.load": lambda: vt.VAQIndex.load(str(tmp_path / "i.npz")),
@@ -133,6 +144,18 @@ def _entry_points(tmp_path):
         "exact_rescore_chunked": lambda: distances.exact_rescore_chunked(
             x[:2], np.zeros((2, 5), np.int32),
             lambda i: x[i * 100:(i + 1) * 100], 300, 100, 5),
+        "BinaryIndex": lambda: binary.BinaryIndex(bit_budget=24),
+        "BinaryIndex.load": lambda: binary.BinaryIndex.load(
+            str(tmp_path / "b.npz")),
+        "ScalarLUTIndex": lambda: binary.ScalarLUTIndex(bit_budget=24),
+        "query_naive_streaming": lambda: binary.query_naive_streaming(
+            str(tmp_path / "x.bin"), 16, x[:2], 5),
+        "build_hamming_clusters": lambda: binary.build_hamming_clusters(
+            bidx, x, 2),
+        "binary_index_from_numpy": lambda: convert.binary_index_from_numpy(
+            *bidx.state()),
+        "hamming_clusters_from_numpy":
+            lambda: convert.hamming_clusters_from_numpy(clusters),
     }
 
 
@@ -140,7 +163,10 @@ ENTRY_POINTS = ["VAQIndex", "VAQIndex.load", "index_from_numpy",
                 "ivf_state_from_numpy", "make_sift_like", "compute_groundtruth",
                 "build_decode_table", "build_decode_rows", "train_rotation",
                 "DeviceChunkSource", "exact_search_chunked",
-                "exact_rescore_chunked"]
+                "exact_rescore_chunked", "BinaryIndex", "BinaryIndex.load",
+                "ScalarLUTIndex", "query_naive_streaming",
+                "build_hamming_clusters", "binary_index_from_numpy",
+                "hamming_clusters_from_numpy"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

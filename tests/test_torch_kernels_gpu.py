@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 ``decode_window_scan``, K2
 ``decode_rescore``, K3/K4 ``fast4_window_scan``, K5 ``groupmin_window_scan``,
-K7 ``gather_rescore``) against their plain PyTorch versions, on a CUDA
-card, also on state that ``add`` grew and ``delete`` poisoned.
+K7 ``gather_rescore``, H1 ``popcount_dists``) against their plain PyTorch
+versions, on a CUDA card, also on state that ``add`` grew and ``delete``
+poisoned, and the binary engine's searches on the card against the CPU.
 
 Every test here is marked ``gpu`` and skips without a card. The file
 imports neither jax nor vaq_tpu, so on the machine with the card it runs
@@ -22,6 +23,9 @@ K7 multiply bf16 by int8 or bf16 values, products exact in f32, and sum the
 same terms in another order, so they agree to 1e-5 of the size of those
 terms (Σ|products| + norms, ``groupmin_term_scale``/``rescore_term_scale``);
 a score near 0 is a sum of terms of hundreds, and its last bits differ.
+H1's Hamming distances are integers and its Jaccard distances one IEEE
+division of integers: bit-equal, and the binary searches built on them
+return identical ids and distances on the card and on the CPU.
 """
 
 import numpy as np
@@ -31,7 +35,8 @@ import torch
 import vaq_tpu_torch
 from vaq_tpu_torch import ivf
 from vaq_tpu_torch.convert import index_from_numpy
-from vaq_tpu_torch.ops import probe_scan, rescore, scan_codes
+from vaq_tpu_torch import binary
+from vaq_tpu_torch.ops import hamming, probe_scan, rescore, scan_codes
 
 # (M, C, L, n, block_rows), tests/test_scan_pallas.py:147-148
 GEOMETRIES = [(8, 16, 4, 1024, 16), (32, 256, 4, 4096, 64),
@@ -98,6 +103,7 @@ K1_CASES = [g + (70, False) for g in GEOMETRIES + [
     (32, 256, 4, 10_000, 128, 600, False),  # two query chunks
     (128, 16, 4, 3000, 16, 40, False),     # d = 512 at 16-row windows
     (8, 16, 4, 4096, 64, 70, True),        # duplicate rows: windows tie
+    (57, 256, 1, 100_000, 128, 70, False),  # ScalarLUTIndex: M' = 57, L = 1
 ]
 
 
@@ -125,7 +131,7 @@ def test_decode_window_scan_kernel_matches_plain(cuda, geom):
 # (C = 16, L = 2) and the main shape (M = 32, C = 256)
 K2_GEOMETRIES = [g[:4] for g in GEOMETRIES] + [
     (6, 16, 5, 3000), (512, 4, 1, 2000), (128, 16, 4, 3000),
-    (64, 16, 2, 100_000), (32, 256, 4, 100_000)]
+    (64, 16, 2, 100_000), (32, 256, 4, 100_000), (57, 256, 1, 100_000)]
 
 
 @pytest.mark.gpu
@@ -600,3 +606,78 @@ def test_codes_kernels_after_add(cuda):
     d_c, i_c = cpu.search(x[5000:5070], 2, backend="codes")
     assert (i_g[:, 0] == i_c[:, 0]).mean() >= 0.97
     np.testing.assert_allclose(d_g[:, 0], d_c[:, 0], rtol=1e-4)
+
+
+# (B, nq, n, W, lo, hi) for H1: W = 1, 3, 8 and 9; n not a multiple of the
+# kernel's 128-row tile; nq not a multiple of its 32-query tile; B > 1 (the
+# probe's cluster blocks); word ranges (the filters' sub-vectors).
+H1_CASES = [(1, 5, 1000, 1, 0, None), (1, 70, 4099, 3, 0, None),
+            (1, 33, 10_007, 8, 0, None), (1, 100, 777, 9, 0, None),
+            (4, 40, 513, 8, 0, None), (3, 9, 300, 9, 2, 7),
+            (1, 64, 2000, 8, 4, 6), (2, 1, 129, 3, 1, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["xor", "jaccard"])
+@pytest.mark.parametrize("case", H1_CASES)
+def test_popcount_dists_kernel_matches_plain(cuda, case, op):
+    """H1 bit-equal to its plain version: random words (the sign bit set
+    in half of them), an all-zero row and query (an empty Jaccard union),
+    an all-ones row."""
+    b, nq, n, w, lo, hi = case
+    rng = np.random.default_rng(n + w)
+    q = rng.integers(0, 2 ** 32, (b, nq, w), dtype=np.uint32)
+    x = rng.integers(0, 2 ** 32, (b, n, w), dtype=np.uint32)
+    q[0, 0] = 0
+    x[0, 0] = 0
+    x[-1, -1] = 0xFFFFFFFF
+    qg = torch.as_tensor(q.view(np.int32), device=cuda)
+    xg = torch.as_tensor(x.view(np.int32), device=cuda)
+    before = hamming.popcount_dists.launches
+    got = hamming.popcount_dists(qg, xg, op, lo, hi)
+    torch.cuda.synchronize()
+    assert hamming.popcount_dists.launches == before + 1
+    want = hamming.popcount_dists_ref(qg, xg, op, lo, hi)
+    assert got.dtype == want.dtype and got.shape == (b, nq, n)
+    assert torch.equal(got, want)
+    cpu = hamming.popcount_dists(qg.cpu(), xg.cpu(), op, lo, hi)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.gpu
+def test_binary_searches_card_equal_cpu(cuda):
+    """One BinaryIndex state searched on the card and on the CPU: packed,
+    matmul, Jaccard, both filters and the cluster probe give identical ids
+    and distances."""
+    from vaq_tpu_torch.convert import (binary_index_from_numpy,
+                                       hamming_clusters_from_numpy)
+    from vaq_tpu_torch.data import make_anisotropic_gaussian
+    base, queries = make_anisotropic_gaussian(6000, 64, 300, seed=11)
+    gpu = binary.BinaryIndex(bit_budget=96, device=cuda).train(base)
+    gpu.encode(base)
+    arrays, meta = gpu.state()
+    cpu = binary_index_from_numpy(arrays, meta, "cpu")
+    for backend in ("packed", "matmul"):
+        for a, b in zip(gpu.query(queries, 50, backend=backend),
+                        cpu.query(queries, 50, backend=backend)):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(gpu.query(queries, 50, metric="jaccard"),
+                    cpu.query(queries, 50, metric="jaccard")):
+        np.testing.assert_array_equal(a, b)
+    for fn in ("query_filtering", "query_filtering_heap"):
+        for q in (queries[:40], base[:40]):
+            for a, b in zip(getattr(gpu, fn)(q, 10, 3),
+                            getattr(cpu, fn)(q, 10, 3)):
+                np.testing.assert_array_equal(a, b)
+    st = binary.build_hamming_clusters(gpu, base, 24, iters=5, device=cuda)
+    st_cpu = hamming_clusters_from_numpy({
+        "centroids": st.centroids, "cap": st.cap,
+        "bucket_words": st.bucket_words.cpu().numpy().view(np.uint32),
+        "bucket_ids": st.bucket_ids.cpu().numpy(),
+        "sizes": st.sizes.cpu().numpy()}, "cpu")
+    for n_probe in (3, 24):
+        for a, b in zip(
+                binary.query_hamming_clusters(gpu, st, queries, 30, n_probe),
+                binary.query_hamming_clusters(cpu, st_cpu, queries, 30,
+                                              n_probe)):
+            np.testing.assert_array_equal(a, b)

@@ -46,6 +46,8 @@ _SIGNATURES = {
     # q_tile, smem, tiles, kpad, keys, stream
     "vaq_fast4_window_scan": (_P, _L, _I, _P, _I, _I, _I, _I, _I, _L, _I, _I,
                               _P, _I, _P, _P),
+    # q, x, b, nq, n, ld, lo, w, jaccard, out, stream
+    "vaq_popcount_dists": (_P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P),
 }
 
 

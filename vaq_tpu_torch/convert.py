@@ -12,6 +12,13 @@ JAX-trained index's state directly, so both packages search one state.
 ``ivf_state_from_numpy`` does the same for the cluster-probe buckets of a
 JAX ``IVFState`` (vaq_tpu/ivf.py:54-86), so both packages can search one
 IVF state with no k-means noise between them.
+
+``binary_index_from_numpy`` and ``hamming_clusters_from_numpy`` carry the
+binary engine's state across (vaq_tpu/binary.py:170-187, 666-674): a
+``BinaryIndex`` from JAX's ``save()`` arrays and meta (``BinaryIndex.load``
+goes through here), and a ``HammingClusterState`` from its fields, so both
+packages search one Hamming cluster state (the two k-means can differ in
+their last bits).
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vaq_tpu_torch.binary import (BinaryIndex, HammingClusterState,
+                                  _device_words)
 from vaq_tpu_torch.config import SearchMethod, VAQConfig
 from vaq_tpu_torch.device import DEFAULT, resolve
 from vaq_tpu_torch.ivf import IVFState
@@ -85,3 +94,39 @@ def ivf_state_from_numpy(arrays: dict,
         bucket_ids=copy(arrays["bucket_ids"], np.int32),
         sizes=copy(arrays["sizes"], np.int32),
         dim_scales=None if scales is None else copy(scales, np.float32))
+
+
+def binary_index_from_numpy(arrays: dict, meta: dict,
+                            device: torch.device | str = DEFAULT
+                            ) -> BinaryIndex:
+    """A BinaryIndex on ``device`` holding exactly the given state: JAX's
+    ``save()`` keys ``eigvecs``, ``bits``, ``boundaries`` and optionally
+    uint32 ``packed``; ``meta`` its ``bit_budget``, ``seed``,
+    ``total_bits``, ``orig_dim``, ``n_rows``."""
+    idx = BinaryIndex(bit_budget=meta["bit_budget"], seed=meta["seed"],
+                      device=device)
+    idx.eigvecs = np.asarray(arrays["eigvecs"], dtype=np.float32)
+    idx.bits = np.asarray(arrays["bits"])
+    idx.boundaries = np.asarray(arrays["boundaries"], dtype=np.float32)
+    idx.total_bits = int(meta["total_bits"])
+    idx.orig_dim = int(meta["orig_dim"])
+    idx.n_rows = int(meta["n_rows"])
+    if "packed" in arrays:
+        idx._set_rows(np.asarray(arrays["packed"]))
+    return idx
+
+
+def hamming_clusters_from_numpy(arrays: dict,
+                                device: torch.device | str = DEFAULT
+                                ) -> HammingClusterState:
+    """A HammingClusterState on ``device`` from a JAX state's fields as
+    numpy arrays: ``centroids``, ``cap``, uint32 ``bucket_words`` (ncl, cap,
+    W), ``bucket_ids``, ``sizes``."""
+    dev = resolve(device)
+    return HammingClusterState(
+        centroids=np.array(arrays["centroids"], dtype=np.float32),
+        cap=int(arrays["cap"]),
+        bucket_words=_device_words(arrays["bucket_words"], dev),
+        bucket_ids=torch.tensor(np.asarray(arrays["bucket_ids"], np.int32),
+                                device=dev),
+        sizes=torch.tensor(np.asarray(arrays["sizes"], np.int32), device=dev))

@@ -9,6 +9,13 @@ at nq=512, n=1M in f32). ``exact_search_chunked`` and
 ``exact_rescore_chunked`` do the same over a source that hands out row
 chunks (``data.DeviceChunkSource``, a memmap), for databases that never
 exist whole on any device: groundtruth and refine at 100M rows.
+
+The binary engine's distances come here too (JAX distances.py:78-159):
+``jaccard_dists``/``jaccard_topk`` over packed bit-vectors through kernel H1
+(``ops/hamming.py``), and ``manhattan_dists``/``manhattan_topk``, L1 by
+``torch.cdist`` a block at a time (JAX computes it in XLA, outside any
+Pallas kernel). Their running merges keep, as JAX's do, the k lowest by
+(value, id) (:func:`running_lowest`).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from vaq_tpu_torch.device import DEFAULT, resolve
+from vaq_tpu_torch.ops import hamming
 from vaq_tpu_torch.ops.scan_codes import _ordered, _select_lowest
 
 # Database rows per block of exact_search (a block of 1000 queries' f32
@@ -32,6 +40,10 @@ TIE_SLACK = 8
 # lowest: bounds its transients (without it, 512 queries × 1,526 blocks of
 # 1,008 entries held ~25 GB at 100M rows, refine 500).
 FOLD_WIDTH = 1 << 14
+# Rows per block of the Jaccard and Manhattan scans: JAX's defaults
+# (distances.py:97, 134).
+JACCARD_BLOCK_ROWS = 65536
+MANHATTAN_BLOCK_ROWS = 8192
 
 
 def pairwise_sq_dists(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -96,6 +108,85 @@ def _lowest_by_key(vals, ids, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     key = (_ordered(v).to(torch.int64) << 32) | (i.to(torch.int64) + 1)
     order = torch.sort(key, dim=1).indices[:, :k]
     return torch.gather(v, 1, order), torch.gather(i, 1, order)
+
+
+def running_lowest(blocks, k: int, fill) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's running top-k merge over row blocks (``lax.scan`` with a
+    ``top_k`` of the carry and the block): the k lowest by (value, id),
+    ascending, with (``fill``, −1) entries where fewer than k rows exist.
+
+    ``blocks()`` yields (values (nq, b) of the block's real rows, id of its
+    first row), ids rising; ``fill`` is the carry's initial value (+inf, or
+    2^30 for JAX's integer scans), which the dtype of the values decides.
+    Each step selects from the carry followed by the block by
+    ``scan_codes._select_lowest`` (ties to the lower position): the carry's
+    ids are below the block's and ascend among equal values, so position
+    order is id order, as JAX's."""
+    best_v = best_i = None
+    for vals, first in blocks():
+        nq = vals.shape[0]
+        if best_v is None:
+            best_v = torch.full((nq, k), fill, dtype=vals.dtype,
+                                device=vals.device)
+            best_i = torch.full((nq, k), -1, dtype=torch.int32,
+                                device=vals.device)
+        best_v, pos = _select_lowest(torch.cat([best_v, vals], dim=1), k)
+        best_i = torch.where(pos < k,
+                             torch.gather(best_i, 1, pos.clamp(max=k - 1)),
+                             (pos - k + first).to(torch.int32))
+    return best_v, best_i
+
+
+def jaccard_dists(q_packed: torch.Tensor, db_packed: torch.Tensor
+                  ) -> torch.Tensor:
+    """Jaccard distance between packed bit-vectors (reference
+    ``jaccardDist``, DistanceFunctions.hpp:218-230): ``1 − popcount(a & b)
+    / popcount(a | b)``, 0 when the union is empty.
+
+    q_packed (nq, W), db_packed (n, W) int32 words on one device → (nq, n)
+    f32, bit-equal to JAX's."""
+    return hamming.popcount_dists(q_packed[None].contiguous(),
+                                  db_packed[None].contiguous(),
+                                  "jaccard")[0]
+
+
+def jaccard_topk(db_packed: torch.Tensor, q_packed: torch.Tensor, k: int,
+                 block_rows: int = JACCARD_BLOCK_ROWS
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked Jaccard top-k over packed bit-vectors, ascending, ties to
+    the lower id (JAX distances.py:95-122): (dists (nq, k) f32, ids (nq, k)
+    int32), (+inf, −1) past n."""
+    n = db_packed.shape[0]
+    block_rows = min(block_rows, max(n, 1))
+
+    def blocks():
+        for start in range(0, n, block_rows):
+            yield jaccard_dists(q_packed, db_packed[start:start + block_rows]), \
+                start
+
+    return running_lowest(blocks, k, float("inf"))
+
+
+def manhattan_dists(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(nq, d) × (n, d) → (nq, n) L1 distances (reference ``manhattanDist``,
+    DistanceFunctions.hpp:254-263), f32 sums in ``torch.cdist``'s order
+    (JAX's differ in the last bits)."""
+    return torch.cdist(q, x, p=1.0)
+
+
+def manhattan_topk(queries: torch.Tensor, db: torch.Tensor, k: int,
+                   block_rows: int = MANHATTAN_BLOCK_ROWS
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked L1 top-k (JAX distances.py:132-159), ascending, ties to the
+    lower id: (dists (nq, k) f32, ids (nq, k) int32), (+inf, −1) past n."""
+    n = db.shape[0]
+    block_rows = min(block_rows, max(n, 1))
+
+    def blocks():
+        for start in range(0, n, block_rows):
+            yield manhattan_dists(queries, db[start:start + block_rows]), start
+
+    return running_lowest(blocks, k, float("inf"))
 
 
 def exact_search(queries: torch.Tensor, db: torch.Tensor, k: int

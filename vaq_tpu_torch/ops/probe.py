@@ -16,8 +16,13 @@ static-shape batched dispatch:
 The JAX version builds the (nq, ncl) membership mask from an
 (nq, p_max, ncl + 1) one-hot and the table from a per-cluster sort; here the
 mask is one scatter and the table another (each entry knows its cluster and
-rank), with the same results. ``gather_merge_topk`` and
-``blocked_cluster_topk`` serve only the binary engine and come with it.
+rank), with the same results.
+
+The binary engine's cluster-pruned Hamming probe (``binary.py``) also takes
+``gather_merge_topk`` (:104) and ``blocked_cluster_topk`` (:147): scores
+where larger is better, each selection ``jax.lax.top_k``'s, ties to the
+lower position in the candidate list (``scan_codes._select_lowest`` on the
+negated scores), always exact (the JAX ``exact=True``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from vaq_tpu_torch.ops.scan_codes import _select_lowest
 
 
 def cluster_sq_dists(qseg: torch.Tensor, centroids: torch.Tensor
@@ -88,3 +95,62 @@ def pick_qcap(nq: int, p_max: int, ncl: int, slack: float = 2.0) -> int:
     mean = nq * p_max / max(ncl, 1)
     cap = int(-(-slack * mean // 8)) * 8 + 8
     return max(8, min(nq, cap))
+
+
+def _top_scores(scores: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k(scores, k)`` along dim 1: the k largest, descending,
+    ties to the lower position (positions int64)."""
+    neg, pos = _select_lowest(-scores, k)
+    return -neg, pos
+
+
+def gather_merge_topk(vals: torch.Tensor, ids: torch.Tensor, ok: torch.Tensor,
+                      ent_c: torch.Tensor, ent_r: torch.Tensor, nq: int,
+                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query merge (JAX probe.py:104-136): gather each dispatched
+    entry's per-(cluster, slot) candidates, then the top-k by score.
+
+    vals (ncl, qcap, kk) f32 scores, larger better; ids (ncl, qcap, kk)
+    int32 row ids; ok/ent_c/ent_r from :func:`dispatch_table`. An entry
+    that was not dispatched contributes (−inf, −1). A query's candidates
+    stand in its probe-slot order, each slot's kk in rank order, and ties
+    go to the lower of those positions. Returns (scores (nq, k) descending,
+    ids (nq, k) int32), padded with (−inf, −1) past the candidates."""
+    ncl, qcap, kk = vals.shape
+    flat = (ent_c.to(torch.int64) * qcap + ent_r.to(torch.int64))
+    okc = ok[:, None]
+    cand_v = torch.where(okc, vals.reshape(ncl * qcap, kk)[flat], -torch.inf)
+    cand_i = torch.where(okc, ids.reshape(ncl * qcap, kk)[flat], -1)
+    cand_v = cand_v.reshape(nq, -1)
+    cand_i = cand_i.reshape(nq, -1)
+    kk_out = min(k, cand_v.shape[1])
+    top_v, pos = _top_scores(cand_v, kk_out)
+    top_i = torch.gather(cand_i, 1, pos)
+    if kk_out < k:
+        top_v = torch.nn.functional.pad(top_v, (0, k - kk_out),
+                                        value=-torch.inf)
+        top_i = torch.nn.functional.pad(top_i, (0, k - kk_out), value=-1)
+    return top_v, top_i
+
+
+def blocked_cluster_topk(score_fn, n_blocks: int, kk: int, exact: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``score_fn(block_index) -> (CB, qcap, cap) scores`` (larger
+    better) over ``n_blocks`` cluster blocks and keep each (cluster, slot)'s
+    top-kk as it goes (JAX probe.py:147-175). Returns (vals (ncl, qcap, kk),
+    pos (ncl, qcap, kk) int64), short rows padded with (−inf, position 0)
+    as in JAX. The last block may hold fewer clusters. ``exact`` is kept
+    for JAX's signature: the port's selection is always exact."""
+    vals, poss = [], []
+    for b in range(n_blocks):
+        s = score_fn(b)
+        cb, qcap, cap = s.shape
+        kkk = min(kk, cap)
+        v, p = _top_scores(s.reshape(cb * qcap, cap), kkk)
+        if kkk < kk:
+            v = torch.nn.functional.pad(v, (0, kk - kkk), value=-torch.inf)
+            p = torch.nn.functional.pad(p, (0, kk - kkk), value=0)
+        vals.append(v.reshape(cb, qcap, kk))
+        poss.append(p.reshape(cb, qcap, kk))
+    return torch.cat(vals), torch.cat(poss)

@@ -360,7 +360,7 @@ def _select_lowest(scores: torch.Tensor, k: int
     gives; ``torch.topk`` picks another set among equal scores. Every
     selection of the port goes through here, the running merges of the
     decoded tier and of ``exact_search`` where a cheaper ``torch.topk``
-    could not be shown to keep JAX's set (``distances.running_lowest``).
+    could not be shown to keep JAX's set (``distances.lowest_over_blocks``).
 
     f32 scores are compared as JAX compares them, in IEEE total order (−0
     below +0): their bits, negative floats flipped, as int32. Up to
