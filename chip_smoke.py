@@ -5,7 +5,7 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``, one
-``nvcc`` per source, all at once) and runs twelve phases, printing progress
+``nvcc`` per source, all at once) and runs fourteen phases, printing progress
 as it goes:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc
@@ -17,7 +17,9 @@ as it goes:
    (bytes over 3.35 TB/s or operations over the peak rate of their type,
    the larger) and one PyTorch call doing its dominant product where there
    is one: K1 at n = 1M codes and 512 queries, at M = 32, C = 256, d = 128
-   with 128-row and with 64-row windows and at the FAST "auto" shape
+   with 128-row and with 64-row windows, at one 250,000-row shard's
+   32-row windows ([shard] at S = 4), at 102,400 rows in 16-row windows
+   ([cli]'s codes run) and at the FAST "auto" shape
    (M = 64, C = 16, L = 2), with its TFLOP/s and share of the bound; the
    tie-exact top-k helper and its forms beside ``torch.topk`` on K1's
    window scores at the port's selection widths; the decoded tier's
@@ -60,7 +62,35 @@ as it goes:
    split of one visit-0.1 batch by stage, and K5/K7's counters zeroed just
    before and read just after; at visit 1.0 the probe must reach the
    decoded tier's recall within 0.03;
-6. ``[crud]``, the same index and probe state mutated: ``add`` of 10,000
+6. ``[serve]``: ``SearchServer(backend="codes", k=100, max_batch=512,
+   max_wait_ms=2, pipeline_depth=4)`` over the same index: 32 closed-loop
+   client threads send 8000 single-row requests from the 1000 queries, then
+   1000 requests of 16-row groups, with QPS, p50/p95/p99, mean batch fill,
+   fetch seconds, batches and K1/K2's launches (zeroed before each load,
+   each > 0); then ``bench.py``'s open-loop sweep of offered rates (8
+   submitters of single rows, 4096 requests a rate, doubling from 2000 a
+   second until the server falls below 97% of it, one midpoint between),
+   its knee and p50/p95 at 80% of the knee; every answer held to
+   ``search_device`` of the same rows in 512-query batches (ids up to near
+   ties within fault 1's tolerance); the same with ``backend="decoded"``; a ``SearchHTTPServer`` answering
+   200 POSTs from 16 threads the same way, ``/healthz`` and ``/stats``; the
+   ``serve`` CLI as a subprocess at 102,400 synthetic rows on the codes
+   tier, one ``/search``, then terminated;
+7. ``[shard]``: ``VAQIndex.shard`` of the same index over S = 2 and 4
+   shards of the one card (``make_mesh(devices=[cuda:0] * S)``), every
+   tier: the decoded tier's distances rank by rank at most the unsharded
+   tier's (each shard rescores its own 2k bf16-ranked candidates, a
+   superset of one device's 2k), the codes tier (K1 at 64- and 32-row windows, K2) and
+   the int8 tier within 0.02 avg_recall@100 of their unsharded readings,
+   the probe at visit 0.1 with the exact second stage (K5/K7 per shard)
+   within 0.03; QPS, recall and launch counts per tier and S;
+   ``sharded_exact_search`` against ``exact_search``; ``lloyd_sharded`` at
+   S = 2 against ``kmeans.lloyd``, step by step from the same centroids
+   (the shards' per-cluster counts equal the unsharded ones, centroids
+   within 1e-5 of the largest), the drift of ten chained iterations
+   logged beside that of ``kmeans.lloyd`` on the same rows in another
+   order;
+8. ``[crud]``, the same index and probe state mutated: ``add`` of 10,000
    rows of the base's own mixture, ``delete`` of 10,000 ids (the first 100
    queries' top-1 among them), then searches on the decoded, int8 and codes
    tiers (K1/K2's counters zeroed before, read after) and the probe at
@@ -71,7 +101,7 @@ as it goes:
    the poisoned slots must be the deleted rows the buckets held; then the
    reference-format artifacts round trip (codes and centroids equal) and
    ``load(with_codes=False)``;
-7. the FAST/LUT path on the same data, ``VAQ256m64min1max4var1,FAST``
+9. the FAST/LUT path on the same data, ``VAQ256m64min1max4var1,FAST``
    (``bench.py:603``'s FAST config at d = 128): train and encode twice
    (the two rotations, codebooks and codes must be bit-equal),
    ``search(backend="fast4")`` (K3), ``learn_quantization``, the same search
@@ -82,11 +112,11 @@ as it goes:
    ``fast.rescore``, ``fast.topk``) and its busy share of the unprofiled
    wall; K3's, K4's and K1's counters are zeroed before their steps and must
    have moved after them;
-8. ``[wide]``: ``VAQ256m32min2max13var1,HEAP`` with the hierarchical
+10. ``[wide]``: ``VAQ256m32min2max13var1,HEAP`` with the hierarchical
    k-means (up to 13-bit subspaces, int32 codes) on the same 1M rows:
    train and encode times, the decoded tier's recall and refine 200 → 100
    against the main groundtruth; the codes tier must refuse it;
-9. ``[binary]``, the BitVecEngine (``vaq_tpu_torch/binary.py``) on the
+11. ``[binary]``, the BitVecEngine (``vaq_tpu_torch/binary.py``) on the
    main path's 1M rows, queries and groundtruth: ``BinaryIndex(256)``
    trained and encoded on the host, then ``query`` k = 100 through
    ``"auto"`` (the ``_int_mm`` form) and ``"packed"`` (kernel H1), which
@@ -103,9 +133,11 @@ as it goes:
    and refined; each step's wall, QPS, recall and peak memory; H1's
    launch count zeroed before each of its steps and K1/K2's before the
    codes tier, each required to move;
-10. ``[cli]``: ``vaq_tpu_torch.cli.demo_vaq.main`` on 100,000 synthetic
-   rows, ``--backend codes --refine 100,200``, its printed lines kept;
-11. one index state searched on the card and through the port's CPU plain
+12. ``[cli]``: ``vaq_tpu_torch.cli.demo_vaq.main`` on 100,000 synthetic
+   rows, ``--backend codes --refine 100,200``, its printed lines kept, and
+   on 102,400 rows, where refine 100's search runs K1/K2 (counted; K1's
+   16-row windows are held against the plain version in phase 3);
+13. one index state searched on the card and through the port's CPU plain
    versions at n = 20k (the decoded and codes tiers, refine, an IVF state
    built on the card and copied to the CPU at d = 128 and d = 96, that
    state mutated alike on both by add and delete, the hierarchical and the
@@ -114,7 +146,7 @@ as it goes:
    quantizers and through ``"lut_gather"``, and a ``BinaryIndex(256)``
    state through packed, matmul, Jaccard, both filters and the cluster
    probe); the answers must agree, the binary ones identically;
-12. ``[deep100m]``: ``scripts/capacity_100m_torch.py``'s ``run()`` at the
+14. ``[deep100m]``: ``scripts/capacity_100m_torch.py``'s ``run()`` at the
    full DEEP-100M size, 100M × 96, ``VAQ256m32min5max8var1``, 1024 queries,
    k = 10: rows generated on the card, train, streamed encode, exact
    groundtruth@100, the codes tier (K1/K2's counters zeroed before, read
@@ -137,7 +169,9 @@ two lines are a JSON object of per-kernel numbers and the card's
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import functools
 import io
@@ -147,6 +181,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -167,10 +202,17 @@ RTOL_KERNEL = 1e-5   # f32 sums in another order: last-bit differences
 K1_SHAPES = ((KC_N, KC_M, KC_C, KC_L, KC_NQ, KC_BR),
              (KC_N, 64, 16, 2, KC_NQ, KC_BR),
              (KC_N, KC_M, KC_C, KC_L, KC_NQ, 64),
-             (KC_N, 57, KC_C, 1, KC_NQ, KC_BR))
-# The last K1 shape is [binary]'s ScalarLUTIndex(256) codes tier: M' = 57
+             (KC_N, 57, KC_C, 1, KC_NQ, KC_BR),
+             (KC_N // 4, KC_M, KC_C, KC_L, KC_NQ, 32),
+             (102_400, KC_M, KC_C, KC_L, KC_NQ, 16))
+# The fourth K1 shape is [binary]'s ScalarLUTIndex(256) codes tier: M' = 57
 # kept dimensions of one subspace each (L = 1), C = 256, 128-row windows; a
 # 57-byte codes row is no multiple of 4 or 16 bytes and the depth pads to 64.
+# The fifth is one shard of [shard]'s codes tier at S = 4: 250,000 rows in
+# 32-row windows (K1 meets in global memory by atomicMin below 64 rows).
+# The sixth is [cli]'s codes run: demo_vaq at 102,400 rows, whose refine
+# 100 searches the codes tier in 16-row windows (refine 200's, at 8 rows,
+# the decoded tier), so every K1 launch of that run is at this shape.
 LUT_M = K1_SHAPES[3][1]
 # (width, k) of the port's selections at 1M rows, 512 queries: the rescored
 # top-k of 2k candidates (codes, decoded, FAST, IVF second stage), the IVF
@@ -202,6 +244,25 @@ KD_NCL, KD_CAP, KD_GS, KD_QCAP, KD_SLOTS, KD_WIN = 32, 102_400, 256, 520, 256, 2
 # K5 on the resident 100M buckets: live slots in the last 16 of the 1000
 # clusters only
 KD_LIVE = 16
+# [serve]: SearchServer(k = 100, max_batch = 512, max_wait 2 ms, 4 batches
+# in flight) over the 1M index; 32 closed-loop clients send 8000 single-row
+# requests, then 1000 requests of 16 rows; 200 HTTP requests from 16
+# threads; the serve CLI at 102,400 synthetic rows on the codes tier
+SERVE_THREADS, SERVE_SINGLE, SERVE_GROUPS, SERVE_GROUP = 32, 8000, 1000, 16
+SERVE_HTTP, SERVE_HTTP_THREADS = 200, 16
+SERVE_CLI_ARGS = ["--synthetic", "102400", "--backend", "codes", "--k", "10",
+                  "--port", "0"]
+SERVE_CLI_LIMIT_S = 120
+# The open-loop sweep of bench.py's serving_knee_fields: 8 submitters, 4096
+# single-row requests a rate, from 2000 a second doubling while the server
+# keeps up (achieved ≥ 97% of offered), one midpoint probe past the knee,
+# then 80% of the knee; the cap is 4× bench.py's 32,000
+SWEEP_SUBMITTERS, SWEEP_REQUESTS, SWEEP_START, SWEEP_CAP = 8, 4096, 2000.0, 128_000.0
+# [shard]: the 1M index over S shards of the one card; at S = 4 the codes
+# tier's per-shard windows are 250,000 // 6,400 → 32 rows; the probe at
+# visit 0.1; the distributed Lloyd on the first 200k rows, 256 clusters
+SHARDS, SHARD_VISIT = (2, 4), 0.10
+KM_ROWS, KM_K, KM_ITERS = 200_000, 256, 10
 TI_CLUSTERS, TI_SEGMENTS = 1000, 16       # bench.py:642-643
 VISITS = (0.25, 0.10, 0.05, 1.0)          # Fig. 11 (ExperimentsParameters.txt:114-124), then all
 # K3/K4 at the FAST path's shape (M = 64, C = 16, 256-row windows, 512
@@ -226,6 +287,12 @@ CLI_ARGS = ["--synthetic", "100000", "--method", METHOD, "--refine", "100,200",
 # The same command under VAQ_TPU_PLATFORM=cpu reads avg_recall 0.5788
 # (refine 100) and 0.8131 (refine 200); the card must come within 0.02.
 CLI_MIN_RECALL = (0.5588, 0.7931)
+# At 102,400 rows the codes tier has 16-row windows at k = 100, so refine
+# 100's search runs K1/K2 (refine 200's, at 8 rows, the decoded tier). The
+# same command under VAQ_TPU_PLATFORM=cpu (the plain versions) reads
+# CLI_CODES_CPU_RECALL; the card must come within 0.02.
+CLI_CODES_ARGS = ["--synthetic", "102400", *CLI_ARGS[2:]]
+CLI_CODES_CPU_RECALL = (0.5779, 0.8051)
 # [binary]: the BitVecEngine at the main path's 1M × 128 rows, queries and
 # groundtruth: BinaryIndex(256) (demo_binary.cpp's default budget, bench.py:567)
 # trained and encoded on all rows, k = 100; the progressive filters over 4
@@ -1184,6 +1251,406 @@ def phase_ivf_path(ctx: dict) -> dict:
     return launches
 
 
+def _check_answers(d, i, ref_d, ref_i, rtol: float, what: str) -> int:
+    """Served (or sharded) answers against the reference's for the same
+    rows: distances elementwise within ``rtol`` relative (+1e-5), ids equal
+    as sets among the entries strictly inside each row's k-th distance less
+    that tolerance (entries tied with the boundary may differ). Returns the
+    rows whose ids differ anywhere (a near tie swapped)."""
+    d, i, ref_d, ref_i = map(np.asarray, (d, i, ref_d, ref_i))
+    assert d.shape == ref_d.shape and i.shape == ref_i.shape, what
+    assert np.isfinite(d).all() and (i >= 0).all(), what
+    np.testing.assert_allclose(d, ref_d, rtol=rtol, atol=1e-5, err_msg=what)
+    edge = ref_d[:, -1:]
+    inside = ref_d < edge - (rtol * np.abs(edge) + 1e-5)
+    for q in np.flatnonzero((i != ref_i).any(axis=1)):
+        assert set(i[q][inside[q]]) == set(ref_i[q][inside[q]]), (what, q)
+    return int((i != ref_i).any(axis=1).sum())
+
+
+def _check_no_worse(d, i, ref_d, ref_i, rtol: float, what: str
+                    ) -> tuple[int, int]:
+    """A sharded tier that rescores a superset of the unsharded tier's
+    candidates (2k or more a shard where one device rescores 2k in all):
+    every distance, rank by rank, at most the unsharded one (+ ``rtol``
+    relative and 1e-5), ids valid. Returns (rows whose ids differ, rows
+    with a distance strictly lower)."""
+    d, i, ref_d, ref_i = map(np.asarray, (d, i, ref_d, ref_i))
+    assert d.shape == ref_d.shape and np.isfinite(d).all(), what
+    assert (i >= 0).all(), what
+    assert (d <= ref_d + rtol * np.abs(ref_d) + 1e-5).all(), what
+    lower = (d < ref_d - (rtol * np.abs(ref_d) + 1e-5)).any(axis=1)
+    return int((i != ref_i).any(axis=1).sum()), int(lower.sum())
+
+
+def _closed_loop(srv, queries, rows_of, n_requests: int, threads: int
+                 ) -> list:
+    """``threads`` clients, each submitting its share of the ``n_requests``
+    requests one after another (closed loop); request r asks for the rows
+    ``rows_of(r)`` of ``queries``. Returns (rows, distances, labels) per request; a
+    failed future fails the run."""
+    out = [None] * n_requests
+
+    def client(t):
+        for r in range(t, n_requests, threads):
+            rows = rows_of(r)
+            d, i = srv.submit(queries[rows]).result(120)
+            out[r] = (rows, d, i)
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        for f in [pool.submit(client, t) for t in range(threads)]:
+            f.result()
+    return out
+
+
+def _reset_server(srv) -> None:
+    with srv._lock:
+        srv.stats.reset()
+        srv.batches_served = srv.queries_served = srv.sum_fill = 0
+        srv.sum_fetch_s = 0.0
+
+
+def _open_loop(srv, queries, rate: float, ref, rtol: float, what: str
+               ) -> tuple[float, float, float]:
+    """``bench.py``'s ``run_rate``: ``SWEEP_SUBMITTERS`` threads offer
+    ``SWEEP_REQUESTS`` single rows at ``rate`` a second in all, each
+    request at its own time whatever the earlier answers; every answer held
+    to the reference's. Returns (achieved per second, p50 ms, p95 ms)."""
+    n, subs = SWEEP_REQUESTS, SWEEP_SUBMITTERS
+    per, spacing = n // subs, subs / rate
+    futs = [None] * n
+    _reset_server(srv)
+    t0 = time.perf_counter()
+
+    def submitter(t):
+        for j in range(per):
+            target = t0 + j * spacing + t * spacing / subs
+            while (dt := target - time.perf_counter()) > 0:
+                time.sleep(min(dt, 0.0005))
+            futs[t * per + j] = srv.submit(queries[(t * per + j) % NQ_MAIN])
+
+    threads = [threading.Thread(target=submitter, args=(t,))
+               for t in range(subs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    got = [f.result(120) for f in futs]
+    wall = time.perf_counter() - t0
+    rows = np.arange(n) % NQ_MAIN
+    _check_answers(np.concatenate([d for d, _ in got]),
+                   np.concatenate([i for _, i in got]), ref[0][rows],
+                   ref[1][rows], rtol, what)
+    s = srv.stats.summary()
+    return n / wall, s["p50_ms"], s["p95_ms"]
+
+
+def _knee_sweep(srv, queries, ref, rtol: float, what: str) -> None:
+    """``bench.py``'s offered-load sweep on a warm server: double the
+    offered rate from ``SWEEP_START`` while the server keeps up (achieved ≥
+    97% of offered), probe once midway past the knee, then report p50/p95 at
+    80% of the knee."""
+    rates, knee = [SWEEP_START], None
+    while rates:
+        rate = rates.pop(0)
+        ach, p50, p95 = _open_loop(srv, queries, rate, ref, rtol, what)
+        kept = ach >= 0.97 * rate
+        log(f"[serve] {what}, open loop: offered {rate:.0f}/s, achieved "
+            f"{ach:.1f}/s, p50 {p50:.3f} / p95 {p95:.3f} ms "
+            f"({'kept up' if kept else 'saturated'})")
+        if kept:
+            knee = rate
+            if rate < SWEEP_CAP:
+                rates = [min(2 * rate, SWEEP_CAP)]
+        elif knee is not None and rate > 1.26 * knee:
+            rates = [round((knee + rate) / 2, -2)]
+    assert knee is not None, f"{what}: no offered rate was kept up"
+    ach, p50, p95 = _open_loop(srv, queries, round(0.8 * knee, -2), ref,
+                               rtol, what)
+    log(f"[serve] {what}, open loop: knee {knee:.0f}/s"
+        f"{' (the cap)' if knee >= SWEEP_CAP else ''}; at 80% of it "
+        f"({round(0.8 * knee, -2):.0f}/s offered) achieved {ach:.1f}/s, p50 "
+        f"{p50:.3f} / p95 {p95:.3f} ms; answers equal the reference's")
+
+
+def _serve_load(srv, queries, what: str, rows_of, n_requests: int, ref,
+                rtol: float) -> dict:
+    """One closed-loop load on a warm server, its counters and K1/K2's
+    launch counts zeroed just before it; logs QPS, latency percentiles,
+    mean batch fill, fetch seconds and batches; holds every answer to the
+    reference's for its rows."""
+    from vaq_tpu_torch.ops import scan_codes
+    _reset_server(srv)
+    scan_codes.decode_window_scan.launches = 0
+    scan_codes.decode_rescore.launches = 0
+    t0 = time.perf_counter()
+    got = _closed_loop(srv, queries, rows_of, n_requests, SERVE_THREADS)
+    wall = time.perf_counter() - t0
+    k1 = scan_codes.decode_window_scan.launches
+    k2 = scan_codes.decode_rescore.launches
+    rows = np.concatenate([r for r, _, _ in got])
+    swaps = _check_answers(np.concatenate([d for _, d, _ in got]),
+                           np.concatenate([i for _, _, i in got]),
+                           ref[0][rows], ref[1][rows], rtol, what)
+    with srv._lock:
+        s = srv.stats.summary()
+        fill = srv.sum_fill / max(srv.batches_served, 1)
+        fetch, batches = srv.sum_fetch_s, srv.batches_served
+    log(f"[serve] {what}: {len(rows)} queries in {n_requests} requests from "
+        f"{SERVE_THREADS} threads, {wall:.3f} s wall: {s['qps']:.0f} QPS, "
+        f"p50 {s['p50_ms']:.3f} / p95 {s['p95_ms']:.3f} / p99 "
+        f"{s['p99_ms']:.3f} ms, mean batch fill {fill:.1f} of "
+        f"{srv.max_batch}, fetch {fetch:.3f} s, {batches} batches; K1/K2 "
+        f"launches {k1}/{k2}; answers equal the reference's, {swaps} rows "
+        f"with a near tie swapped")
+    return {"qps": s["qps"], "k1": k1, "k2": k2}
+
+
+def _http_json(url: str, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def _serve_cli() -> None:
+    """``python -m vaq_tpu_torch.cli.serve`` as a subprocess: wait for its
+    ``serving on`` line, send one /search, then terminate it."""
+    cmd = [sys.executable, "-m", "vaq_tpu_torch.cli.serve", *SERVE_CLI_ARGS]
+    env = {k: v for k, v in os.environ.items() if k != "VAQ_TPU_PLATFORM"}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    try:
+        lines, url = [], None
+        while time.perf_counter() - t0 < SERVE_CLI_LIMIT_S:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line.rstrip())
+            m = re.search(r"serving on (http://\S+)", line)
+            if m:
+                url = m.group(1)
+                break
+        for line in lines:
+            log(f"[serve] cli: {line}")
+        assert url is not None, f"serve printed no 'serving on' line: {lines}"
+        up = time.perf_counter() - t0
+        q = np.random.default_rng(SEED).standard_normal(D_MAIN)
+        out = _http_json(url + "/search", {"query": q.tolist()})
+        labels = np.asarray(out["labels"])
+        assert labels.shape == (1, 10) and (labels >= 0).all(), out
+        assert np.isfinite(np.asarray(out["distances"])).all()
+        log(f"[serve] cli: {' '.join(SERVE_CLI_ARGS)}: serving after "
+            f"{up:.1f} s, /search answered {labels[0].tolist()}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def phase_serve(ctx: dict) -> dict:
+    """``SearchServer`` over the 1M index: closed-loop single-row and
+    group loads and the open-loop sweep on the codes tier (K1/K2) and on
+    the decoded tier, each answer held to ``search_device`` of the same
+    rows in 512-query batches;
+    the HTTP front end; the ``serve`` CLI. Returns K1/K2's launches under
+    the codes tier's loads."""
+    from vaq_tpu_torch.serving import SearchServer
+    from vaq_tpu_torch.serving_http import SearchHTTPServer
+    idx, queries = ctx["idx"], ctx["queries"]
+    qdev = torch.as_tensor(queries, device=DEVICE)
+    # fault 1: the codes tier's winners are picked on K1's packed scores
+    br = idx._codes_block_rows(100)
+    rtol_codes = RTOL_KERNEL + 2.0 ** ((br - 1).bit_length() - 23)
+    launches = {}
+    for backend in ("codes", "decoded"):
+        parts = [idx.search_device(qdev[s:s + 512], 100, backend=backend)
+                 for s in range(0, NQ_MAIN, 512)]
+        ref = (torch.cat([p[0] for p in parts]).cpu().numpy(),
+               torch.cat([p[1] for p in parts]).cpu().numpy())
+        rtol = rtol_codes if backend == "codes" else RTOL_KERNEL
+        srv = SearchServer(idx, k=100, max_batch=512, max_wait_ms=2,
+                           backend=backend, pipeline_depth=4)
+        try:
+            srv.search(queries[0])                       # warm
+            single = _serve_load(
+                srv, queries, f"{backend} tier, single rows", lambda r: np.array(
+                    [r % NQ_MAIN]), SERVE_SINGLE, ref, rtol)
+            group = _serve_load(
+                srv, queries, f"{backend} tier, {SERVE_GROUP}-row groups",
+                lambda r: (r * SERVE_GROUP + np.arange(SERVE_GROUP)) % NQ_MAIN,
+                SERVE_GROUPS, ref, rtol)
+            _knee_sweep(srv, queries, ref, rtol, f"{backend} tier")
+            if backend == "codes":
+                for load in (single, group):
+                    assert load["k1"] > 0 and load["k2"] > 0, load
+                launches = {"serve": {
+                    "decode_window_scan": single["k1"] + group["k1"],
+                    "decode_rescore": single["k2"] + group["k2"]}}
+                http = SearchHTTPServer(srv, host="127.0.0.1", port=0).start()
+                try:
+                    _serve_http(http, queries, ref, rtol)
+                finally:
+                    http.close()
+        finally:
+            srv.close()
+    _serve_cli()
+    return launches
+
+
+def _serve_http(http, queries, ref, rtol: float) -> None:
+    """``SERVE_HTTP`` POST /search requests from ``SERVE_HTTP_THREADS``
+    threads, each answer held to the reference's; /healthz and /stats."""
+    host, port = http.address[:2]
+    root = f"http://{host}:{port}"
+    assert _http_json(root + "/healthz") == {"ok": True}
+
+    def one(r):
+        out = _http_json(root + "/search",
+                         {"query": queries[r % NQ_MAIN].tolist()})
+        return r % NQ_MAIN, out
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(SERVE_HTTP_THREADS) as pool:
+        got = list(pool.map(one, range(SERVE_HTTP)))
+    wall = time.perf_counter() - t0
+    rows = np.array([r for r, _ in got])
+    swaps = _check_answers(
+        np.concatenate([np.asarray(o["distances"], np.float32)
+                        for _, o in got]),
+        np.concatenate([np.asarray(o["labels"], np.int32) for _, o in got]),
+        ref[0][rows], ref[1][rows], rtol, "http")
+    stats = _http_json(root + "/stats")
+    assert stats["queries_served"] >= SERVE_HTTP, stats
+    log(f"[serve] http: {SERVE_HTTP} POST /search from {SERVE_HTTP_THREADS} "
+        f"threads in {wall:.3f} s ({SERVE_HTTP / wall:.0f} requests/s), "
+        f"answers equal the reference's ({swaps} near-tie swaps); /healthz "
+        f"ok; /stats {json.dumps(stats)}")
+
+
+def phase_shard(ctx: dict) -> dict:
+    """``VAQIndex.shard`` over S shards of the one card (S = 2, 4): the
+    decoded, int8 and codes tiers and the probe at visit 0.1, held to the
+    unsharded tiers; ``sharded_exact_search`` to ``exact_search``;
+    ``lloyd_sharded`` at S = 2 to ``kmeans.lloyd``. Returns the launches of
+    K1/K2 (codes) and K5/K7 (probe) per S, and K1's at the 32-row windows
+    of S = 4."""
+    from vaq_tpu_torch import kmeans, metrics
+    from vaq_tpu_torch.ops import distances, probe_scan, rescore, scan_codes
+    from vaq_tpu_torch.parallel import make_mesh, sharded_exact_search
+    from vaq_tpu_torch.parallel.dist_kmeans import lloyd_sharded, shard_rows_for
+    from vaq_tpu_torch.parallel.sharded import _shard_span
+    idx, queries, gt, base = ctx["idx"], ctx["queries"], ctx["gt"], ctx["base"]
+    dev = torch.device(DEVICE)
+    idx.ivf.visit = SHARD_VISIT
+    tiers = ("decoded", "decoded8", "codes", "ivf")
+    ref = {b: idx.search(queries, 100, backend=b) for b in tiers}
+    rec = {b: metrics.avg_recall(ref[b][1], gt, 100) for b in tiers}
+    counters = {"decode_window_scan": scan_codes.decode_window_scan,
+                "decode_rescore": scan_codes.decode_rescore,
+                "groupmin_window_scan": probe_scan.groupmin_window_scan,
+                "gather_rescore": rescore.gather_rescore}
+    launches = {}
+    for s in SHARDS:
+        sidx = copy.copy(idx)        # the tiers stay shared, the mesh is the copy's
+        mesh = make_mesh(devices=[dev] * s)
+        _step(f"shard S={s} tiers={tiers}",
+              lambda: sidx.shard(mesh, tiers=tiers), tag="shard")
+        br = sidx._codes_block_rows(100, sidx._sharded_codes.shard_rows)
+        for c in counters.values():
+            c.launches = 0
+        got = {}
+        for b in tiers:
+            sidx.search(queries, 100, backend=b)          # first call
+            got[b] = _step(f"S={s} search {b} k=100", lambda: sidx.search(
+                queries, 100, backend=b), NQ_MAIN, tag="shard")
+        counts = {n: c.launches for n, c in counters.items()}
+        differ, lower = _check_no_worse(*got["decoded"], *ref["decoded"],
+                                        1e-5, f"decoded S={s}")
+        r = {b: metrics.avg_recall(got[b][1], gt, 100) for b in tiers}
+        log(f"[shard] S={s}: avg_recall@100 " + ", ".join(
+            f"{b} {r[b]:.4f} (unsharded {rec[b]:.4f})" for b in tiers)
+            + f"; decoded distances rank by rank no worse than the "
+            f"unsharded tier's, ids differing in {differ} of {NQ_MAIN} rows, "
+            f"{lower} rows with a lower distance; codes windows {br} rows; "
+            f"launches {counts}")
+        assert abs(r["codes"] - rec["codes"]) <= 0.02, (r, rec)
+        assert abs(r["decoded8"] - rec["decoded8"]) <= 0.02, (r, rec)
+        assert abs(r["ivf"] - rec["ivf"]) <= 0.03, (r, rec)
+        assert all(n > 0 for n in counts.values()), counts
+        launches[f"shard S={s}"] = counts
+        if br == 32:
+            launches["decode_window_scan_br32"] = counts["decode_window_scan"]
+        del sidx, mesh
+        torch.cuda.empty_cache()
+
+    # the sharded groundtruth generator and the distributed Lloyd
+    x = torch.as_tensor(base, device=dev)
+    qd = torch.as_tensor(queries, device=dev)
+    mesh = make_mesh(devices=[dev] * SHARDS[-1])
+    d_1, i_1 = distances.exact_search(qd, x, 100)
+    d_s, i_s = _step(f"sharded_exact_search S={SHARDS[-1]} k=100",
+                     lambda: sharded_exact_search(
+                         shard_rows_for(mesh, x), qd, 100, N_MAIN, mesh),
+                     NQ_MAIN, tag="shard")
+    swaps = _check_answers(d_s.cpu(), i_s.cpu(), d_1.cpu(), i_1.cpu(), 1e-6,
+                           "sharded_exact_search")
+    log(f"[shard] sharded_exact_search: ids equal exact_search's but {swaps} "
+        f"rows with a near tie swapped")
+    xk = x[:KM_ROWS]
+    c0 = xk[torch.as_tensor(np.random.default_rng(SEED).choice(
+        KM_ROWS, KM_K, replace=False), device=dev)]
+    m2 = make_mesh(devices=[dev] * 2)
+    x_sh = shard_rows_for(m2, xk)
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().max()).max())
+
+    c_ref = _step(f"kmeans.lloyd {KM_ROWS} x {D_MAIN}, k={KM_K}, "
+                  f"{KM_ITERS} iters", lambda: kmeans.lloyd(xk, c0, KM_ITERS),
+                  tag="shard")
+    c_sh = _step("lloyd_sharded S=2", lambda: lloyd_sharded(
+        x_sh, c0, KM_ROWS, KM_ITERS, m2), tag="shard")
+    # Step by step from the same centroids: the per-cluster counts that the
+    # shards' _cluster_sums give (what lloyd_sharded reduces) must equal
+    # one process's, and the new centroids agree within 1e-5. Over many
+    # steps sums in another order (last bits) can tip a near tie and the
+    # runs part; that drift is logged beside kmeans.lloyd's own on the same
+    # rows in another order (one process, one block: only the order of the
+    # sums differs), not held.
+    shards = [p[:_shard_span(x_sh, j, KM_ROWS)[1]]
+              for j, p in enumerate(x_sh.parts[0])]
+    c, worst, flips, count_diff = c0, 0.0, 0, 0
+    for _ in range(KM_ITERS):
+        n_1 = kmeans._cluster_sums(xk[None], c[None])[1][0]
+        n_s = sum(kmeans._cluster_sums(p[None], c[None])[1][0] for p in shards)
+        count_diff += int((n_s - n_1).abs().sum())
+        nxt = kmeans.lloyd(xk, c, 1)
+        worst = max(worst, rel(lloyd_sharded(x_sh, c, KM_ROWS, 1, m2), nxt))
+        flips += int((kmeans.assign_clusters(xk, nxt)
+                      != kmeans.assign_clusters(xk, c)).sum())
+        c = nxt
+    c_perm = kmeans.lloyd(xk.roll(KM_ROWS // 2, 0), c0, KM_ITERS)
+    log(f"[shard] lloyd_sharded vs kmeans.lloyd, each of {KM_ITERS} steps "
+        f"from the same centroids: per-cluster counts differ by "
+        f"{count_diff} rows in all ({flips} reassignments over the steps), "
+        f"max |Δ| {worst:.3g} of the largest centroid; after {KM_ITERS} "
+        f"chained iterations each: max |Δ| {rel(c_sh, c_ref):.3g}; "
+        f"kmeans.lloyd on the rows rolled by {KM_ROWS // 2}, {KM_ITERS} "
+        f"iterations: max |Δ| {rel(c_perm, c_ref):.3g}")
+    assert count_diff == 0, count_diff
+    assert worst <= 1e-5, worst
+    del x, qd, xk
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _live_groundtruth(rows: torch.Tensor, dead: np.ndarray, queries, k: int
                       ) -> np.ndarray:
     """Exact top-k ids of ``queries`` over the rows not in ``dead``, on the
@@ -1641,24 +2108,44 @@ def phase_binary(ctx: dict) -> tuple[dict, list[dict]]:
     return launches, [entry]
 
 
-def phase_cli() -> None:
-    """demo_vaq on the card, its lines printed under [cli]."""
+def _demo_vaq(argv: list[str]) -> tuple[list[float], int, int]:
+    """demo_vaq on the card, its lines printed under [cli]; returns its
+    avg_recall lines and K1/K2's launches (counters zeroed just before)."""
     from vaq_tpu_torch.cli import demo_vaq
+    from vaq_tpu_torch.ops import scan_codes
     os.environ.pop("VAQ_TPU_PLATFORM", None)
     out = io.StringIO()
+    scan_codes.decode_window_scan.launches = 0
+    scan_codes.decode_rescore.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = demo_vaq.main(CLI_ARGS)
+        rc = demo_vaq.main(argv)
     dt = time.perf_counter() - t0
+    k1 = scan_codes.decode_window_scan.launches
+    k2 = scan_codes.decode_rescore.launches
     for line in out.getvalue().splitlines():
         log(f"[cli] {line}")
     recalls = [float(v) for v in
                re.findall(r"precision\(avg_recall\): ([0-9.]+)", out.getvalue())]
-    log(f"[cli] demo_vaq {' '.join(CLI_ARGS)}: exit {rc}, {dt:.3f} s")
+    log(f"[cli] demo_vaq {' '.join(argv)}: exit {rc}, {dt:.3f} s, K1/K2 "
+        f"launches {k1}/{k2}")
     assert rc == 0 and len(recalls) == 2, (rc, recalls)
+    assert recalls[0] <= recalls[1] <= 1.0, recalls   # refine 100, 200
+    return recalls, k1, k2
+
+
+def phase_cli() -> dict:
+    """demo_vaq at 100k rows (the decoded tier serves both refines) and at
+    102,400 (refine 100's search on K1/K2); returns the second's launches."""
+    recalls, _, _ = _demo_vaq(CLI_ARGS)
     assert all(r >= lo for r, lo in zip(recalls, CLI_MIN_RECALL)), \
         (recalls, CLI_MIN_RECALL)
-    assert recalls[0] <= recalls[1] <= 1.0, recalls   # refine 100, 200
+    recalls, k1, k2 = _demo_vaq(CLI_CODES_ARGS)
+    assert k1 > 0 and k2 > 0, (k1, k2)
+    assert all(abs(r - c) <= 0.02 for r, c in zip(recalls,
+                                                  CLI_CODES_CPU_RECALL)), \
+        (recalls, CLI_CODES_CPU_RECALL)
+    return {"cli": {"decode_window_scan": k1, "decode_rescore": k2}}
 
 
 def _ivf_card_vs_cpu(gpu, cpu, queries, ti_segments: int) -> None:
@@ -2038,6 +2525,12 @@ def main() -> int:
     log(f"[kernels] clocks.sm, clocks.max.sm, power.draw, temperature: {_clocks()}")
     launches, ctx = phase_main_path()
     launches.update(phase_ivf_path(ctx))
+    by_path = phase_serve(ctx)
+    shard = phase_shard(ctx)
+    assert "decode_window_scan_br32" in shard, "no shard count gave 32-row windows"
+    launches["decode_window_scan_br32"] = shard.pop("decode_window_scan_br32")
+    by_path.update(shard)
+    torch.cuda.empty_cache()
     phase_crud(ctx)
     ctx["idx"] = None
     torch.cuda.empty_cache()
@@ -2050,7 +2543,9 @@ def main() -> int:
     kernels += bin_kernels
     del ctx
     torch.cuda.empty_cache()
-    phase_cli()
+    by_path.update(phase_cli())
+    # every K1 launch of [cli]'s codes run is at 16-row windows
+    launches["decode_window_scan_br16"] = by_path["cli"]["decode_window_scan"]
     phase_card_vs_cpu()
     torch.cuda.empty_cache()
     deep_launches, deep_kernels = phase_deep100m()
@@ -2061,6 +2556,13 @@ def main() -> int:
         # path's: the longest counter name that prefixes the check's
         name = max((n for n in launches if kern["name"].startswith(n)), key=len)
         kern["launches"] = launches[name]
+        # the serving, sharded and CLI paths' launches of the main path's
+        # kernels, each counted from 0 around its path
+        if kern["name"] in ("decode_window_scan", "decode_rescore",
+                            "groupmin_window_scan", "gather_rescore"):
+            kern["launches_by_path"] = {
+                path: counts[kern["name"]] for path, counts in by_path.items()
+                if kern["name"] in counts}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,9 @@ import vaq_tpu
 from vaq_tpu.cli import demo_binary as jdemo_binary
 from vaq_tpu.cli import demo_bitvecengine as jdemo_bve
 from vaq_tpu.cli import demo_vaq as jdemo
+from vaq_tpu.cli import serve as jserve
 from vaq_tpu_torch.cli import (demo_binary, demo_bitvecengine, demo_vaq,
-                               platform_device)
+                               platform_device, serve)
 from vaq_tpu_torch.errors import ConfigError, DeviceError
 
 torch.set_num_threads(2)  # six test workers share the host
@@ -178,7 +179,7 @@ def test_demo_binary_matches_jax(cpu_env, capsys, tmp_path, extra):
 @pytest.mark.parametrize("mode,metric", [
     (0, "hamming"), (0, "jaccard"), (1, "hamming"), (2, "hamming"),
     (3, "hamming"), (4, "l2"), (4, "manhattan"), (5, "l2"), (6, "l2"),
-    (9, "l2")])
+    (7, "l2"), (8, "l2"), (9, "l2")])
 def test_demo_bitvecengine_matches_jax(cpu_env, capsys, mode, metric):
     argv = BINARY_FLAGS + ["--mode", str(mode), "--metric", metric,
                            "--iteration", "2"]
@@ -187,7 +188,7 @@ def test_demo_bitvecengine_matches_jax(cpu_env, capsys, mode, metric):
     assert rc_t == rc_j == 0
     assert all(len(got_t[m]) == 1 for m in METRICS), out_t
     assert bare_lines(out_t) == bare_lines(out_j)
-    if mode in (4, 5, 6, 9) and metric == "l2":     # exact: recall 1
+    if mode in (4, 5, 6, 7, 8, 9) and metric == "l2":  # exact: recall 1
         assert got_t["precision(avg_recall)"] == [1.0]
 
 
@@ -198,15 +199,6 @@ def test_demo_bitvecengine_writes_groundtruth(cpu_env, capsys, tmp_path):
         "--write-groundtruth", path], capsys)
     assert rc == 0 and f"groundtruth written to {path}" in out
     assert port_io.read_ivecs(path).shape == (20, 10)
-
-
-@pytest.mark.parametrize("mode", [7, 8])
-def test_demo_bitvecengine_sharded_modes_raise(cpu_env, mode):
-    """Modes 7/8 are JAX's sharded exact search over a device mesh; the
-    port's parallel package does not exist yet, so they refuse rather than
-    answer with a one-device search."""
-    with pytest.raises(ConfigError, match="parallel"):
-        demo_bitvecengine.main(BINARY_FLAGS + ["--mode", str(mode)])
 
 
 def test_binary_parsers_take_the_jax_flags():
@@ -220,3 +212,59 @@ def test_binary_parsers_take_the_jax_flags():
         got = sorted(o for a in port.build_parser()._actions
                      for o in a.option_strings if o.startswith("--"))
         assert [f for f in got if f != "--help"] == want
+
+
+def test_serve_parser_takes_the_jax_flags():
+    """Every flag JAX's ``serve`` defines (read from its source), the port's
+    parser defines too, with JAX's defaults."""
+    import inspect
+    src = inspect.getsource(jserve)
+    want = sorted(set(re.findall(r'add_argument\("(--[a-z-]+)"', src)))
+    parser = serve.build_parser()
+    got = sorted(o for a in parser._actions for o in a.option_strings
+                 if o.startswith("--"))
+    assert [f for f in got if f != "--help"] == want
+    assert vars(parser.parse_args([])) == {
+        "index": "", "synthetic": 0, "dim": 128,
+        "method": "VAQ256m32min7max8var1,HEAP", "host": "127.0.0.1",
+        "port": 8080, "k": 10, "max_batch": 256, "max_wait_ms": 2.0,
+        "backend": "decoded"}
+
+
+def test_serve_answers_and_shuts_down(cpu_env, capsys):
+    """``serve.main`` in a thread on port 0 with --synthetic: it warms the
+    path, prints JAX's ``serving on http://...`` line, answers one /search
+    as the index it built does, and returns 0 once stopped."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    stop = threading.Event()
+    rc = []
+    argv = ["--synthetic", "3000", "--dim", "32", "--method",
+            "VAQ64m8min7max8var1,HEAP", "--port", "0", "--k", "5",
+            "--max-batch", "8", "--backend", "codes"]
+    th = threading.Thread(target=lambda: rc.append(serve.main(argv, stop)))
+    th.start()
+    out = ""
+    try:
+        deadline = time.monotonic() + 120
+        while "serving on" not in out and time.monotonic() < deadline \
+                and th.is_alive():
+            time.sleep(0.1)
+            out += capsys.readouterr().out
+        url = re.search(r"serving on (http://\S+)", out).group(1)
+        assert "(k=5, max_batch=8, backend=codes)" in out
+        q = np.random.default_rng(0).standard_normal(32).astype(np.float32)
+        req = urllib.request.Request(
+            url + "/search", data=json.dumps({"query": q.tolist()}).encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            got = json.loads(r.read())
+        assert np.asarray(got["labels"]).shape == (1, 5)
+        assert np.isfinite(np.asarray(got["distances"])).all()
+    finally:
+        stop.set()
+        th.join(60)
+    assert not th.is_alive() and rc == [0]

@@ -52,6 +52,10 @@ def test_import_loads_neither_jax_nor_vaq_tpu_and_sets_precision():
         "import vaq_tpu_torch.binary, vaq_tpu_torch.ops.hamming\n"
         "import vaq_tpu_torch.cli.demo_binary\n"
         "import vaq_tpu_torch.cli.demo_bitvecengine\n"
+        "import vaq_tpu_torch.cli.serve, vaq_tpu_torch.serving_http\n"
+        "import vaq_tpu_torch.profiling, vaq_tpu_torch.parallel\n"
+        "import vaq_tpu_torch.parallel.dist_kmeans\n"
+        "import vaq_tpu_torch.parallel.multihost\n"
         "import runpy\n"
         "runpy.run_path('scripts/capacity_100m_torch.py')\n"
         "print(json.dumps({\n"
@@ -63,7 +67,8 @@ def test_import_loads_neither_jax_nor_vaq_tpu_and_sets_precision():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert not [m for m in out["mods"] if _forbidden(m)]
     assert {"vaq_tpu_torch.vaq", "vaq_tpu_torch.binary",
-            "vaq_tpu_torch.ops.hamming"} <= set(out["mods"])
+            "vaq_tpu_torch.ops.hamming", "vaq_tpu_torch.serving",
+            "vaq_tpu_torch.parallel.sharded"} <= set(out["mods"])
     assert out["tf32"] is False and out["cudnn_tf32"] is False
     assert out["prec"] == "highest"
 
@@ -105,7 +110,10 @@ def _entry_points(tmp_path):
 
     import vaq_tpu_torch as vt
     from vaq_tpu_torch import binary, convert, data, pca
+    from vaq_tpu_torch.cli import serve
     from vaq_tpu_torch.ops import distances, scan_codes
+    from vaq_tpu_torch.parallel import make_mesh
+    from vaq_tpu_torch.parallel.multihost import pod_mesh
 
     x = np.random.default_rng(0).standard_normal((300, 16)).astype(np.float32)
     idx = vt.VAQIndex(vt.parse_method_string("VAQ16m4min2max4var1,HEAP"),
@@ -156,6 +164,11 @@ def _entry_points(tmp_path):
             *bidx.state()),
         "hamming_clusters_from_numpy":
             lambda: convert.hamming_clusters_from_numpy(clusters),
+        "make_mesh": lambda: make_mesh(),
+        "pod_mesh": lambda: pod_mesh(),
+        "VAQIndex.shard": lambda: idx.shard(),
+        "serve.main": lambda: serve.main(["--index",
+                                          str(tmp_path / "i.npz")]),
     }
 
 
@@ -166,7 +179,8 @@ ENTRY_POINTS = ["VAQIndex", "VAQIndex.load", "index_from_numpy",
                 "exact_rescore_chunked", "BinaryIndex", "BinaryIndex.load",
                 "ScalarLUTIndex", "query_naive_streaming",
                 "build_hamming_clusters", "binary_index_from_numpy",
-                "hamming_clusters_from_numpy"]
+                "hamming_clusters_from_numpy", "make_mesh", "pod_mesh",
+                "VAQIndex.shard", "serve.main"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -99,6 +99,8 @@ K1_CASES = [g + (70, False) for g in GEOMETRIES + [
     (64, 16, 2, 100_000, 128, 70, False),  # the FAST "auto" shape, C = 16
     (32, 256, 4, 50_000, 64, 130, False),  # 64-row windows, two sub-tiles
     (32, 256, 4, 50_000, 512, 70, False),  # windows span four tiles
+    (32, 256, 4, 50_000, 32, 70, False),   # the sharded codes tier's 32
+    (32, 256, 4, 50_000, 256, 70, False),  # windows span two tiles
     (32, 256, 4, 20_000, 128, 488, False),  # a ragged last query sub-tile
     (32, 256, 4, 10_000, 128, 600, False),  # two query chunks
     (128, 16, 4, 3000, 16, 40, False),     # d = 512 at 16-row windows

@@ -44,6 +44,25 @@ def test_decode_window_scan_plain_matches_jax(geom):
     assert_windows_match(cents, codes, qp, s_t, i_t, s_j, i_j, br)
 
 
+@pytest.mark.parametrize("block_rows", [16, 32, 64, 128, 256, 512])
+def test_decode_window_scan_plain_every_window_size_matches_jax(block_rows):
+    """Every power of two from 16 to 512 rows, the window sizes the codes
+    tier takes (the sharded tier's per-shard rule among them: 32 rows at 4
+    shards of 1M, k = 100)."""
+    n = 8 * max(128, block_rows)           # JAX's grid: 8 windows a cell
+    geom = (8, 16, 4, n, block_rows)
+    cents, codes, qp = make_inputs(geom, seed=block_rows)
+    table_j, _ = scan_pallas.build_decode_table(cents)
+    s_j, i_j = scan_pallas.decode_window_scan(
+        jnp.asarray(codes.T.copy()), table_j, jnp.asarray(qp),
+        block_rows=block_rows, q_tile=8, interpret=True)
+    s_t, i_t = scan_codes.decode_window_scan(
+        torch.as_tensor(codes), scan_codes.build_decode_table(cents, "cpu"),
+        torch.as_tensor(qp), block_rows)
+    assert s_t.shape == (qp.shape[0], n // block_rows)
+    assert_windows_match(cents, codes, qp, s_t, i_t, s_j, i_j, block_rows)
+
+
 def test_decode_window_scan_ragged_rows_decode_as_code_zero():
     """n not a multiple of block_rows: the last window's missing rows count
     as code 0, exactly as JAX's zero-padded codes do."""

@@ -11,14 +11,13 @@ query modes map onto the engine as:
   mode 4  ED naive (exact)         → query_naive
   mode 5  ED naive + cluster       → query_naive
   mode 6  ED naive parallel        → query_naive
-  mode 7  ED disk-resident         → sharded exact search (not ported)
-  mode 8  ED cluster disk-resident → sharded exact search (not ported)
+  mode 7  ED disk-resident         → sharded exact search over the mesh
+  mode 8  ED cluster disk-resident → sharded exact search over the mesh
   mode 9  ED triangle-inequality   → query_naive (exact; TI is a CPU prune)
 
-Modes 7 and 8 are the JAX demo's sharded exact search over a device mesh
-(``vaq_tpu.parallel.sharded_exact_search``). The port's ``parallel``
-package does not exist yet (ROADMAP queue 1, item 6), so they raise
-ConfigError rather than answer with a one-device search.
+Modes 7 and 8 run ``parallel.sharded_exact_search`` over ``make_mesh()``
+(every visible card; the CPU under ``VAQ_TPU_PLATFORM=cpu``), the rows
+placed by ``shard_rows_for``, as the JAX demo does.
 
 plus --write-groundtruth (demo_bitvecengine.cpp:335-355) and --iteration
 query-time averaging (cpp:311-333).
@@ -31,9 +30,6 @@ import sys
 import time
 
 import numpy as np
-
-SHARDED_MODES = (7, 8)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -66,13 +62,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from vaq_tpu_torch.cli import platform_device
-    from vaq_tpu_torch.errors import ConfigError
     device = platform_device()
-    if args.mode in SHARDED_MODES:
-        raise ConfigError(
-            f"demo_bitvecengine --mode {args.mode} is the sharded exact "
-            "search over a device mesh, which needs vaq_tpu_torch.parallel: "
-            "not ported yet (ROADMAP queue 1, item 6)")
 
     from vaq_tpu_torch import io, metrics
     from vaq_tpu_torch.binary import BinaryIndex
@@ -114,11 +104,23 @@ def main(argv=None) -> int:
         elif mode in (1, 3):
             dists, labels = idx.query_rerank(queries, dataset, args.k,
                                              factor=args.rerank_factor)
-        else:  # 4, 5, 6, 9
+        elif mode in (4, 5, 6, 9):
             ex_metric = args.metric if args.metric in ("l2", "manhattan") \
                 else "l2"
             dists, labels = idx.query_naive(queries, dataset, args.k,
                                             metric=ex_metric)
+        else:  # 7, 8: sharded exact over the device mesh
+            import torch
+
+            from vaq_tpu_torch.parallel import make_mesh, sharded_exact_search
+            from vaq_tpu_torch.parallel.dist_kmeans import shard_rows_for
+            mesh = make_mesh(devices=None if device == "cuda" else [device])
+            db_sh = shard_rows_for(mesh, np.asarray(dataset, np.float32))
+            d_, l_ = sharded_exact_search(
+                db_sh, torch.as_tensor(np.asarray(queries, np.float32),
+                                       device=mesh.devices.flat[0]),
+                args.k, dataset.shape[0], mesh)
+            dists, labels = d_.cpu().numpy(), l_.cpu().numpy()
         times.append(time.perf_counter() - t0)
     print(f"== Querying time (avg over {args.iteration}): "
           f"{np.mean(times):.4f}s")

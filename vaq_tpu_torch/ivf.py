@@ -32,7 +32,11 @@ codes, chunk by chunk, for a database whose decode cannot exist whole (19.2
 GB of bf16 at 100M × 96). JAX staged them in a host buffer and uploaded it
 in pieces, answers to the TPU's 16 GB and its transfer pool; here they are
 filled in place on the index's device, and the capacity fill and the slot
-table run there too. Left for later: ``ShardedIVF``.
+table run there too.
+
+:class:`ShardedIVF` (JAX ivf.py:839-939) splits the buckets by whole
+clusters over a mesh's "db" axis and probes every shard
+(``parallel.sharded_ivf_search``).
 """
 
 from __future__ import annotations
@@ -637,6 +641,114 @@ class IVFSearcher:
                           k, p_visit, p_max, qcap, gs,
                           dim_scales=st.dim_scales, rescore_rows=r_rows,
                           rescore_norms=r_norms)
+
+
+class ShardedIVF:
+    """Mesh-sharded probe state + search (JAX ivf.py:839-939).
+
+    Shards the buckets over the CLUSTER axis of a mesh's "db" axis: each
+    shard owns ``ncl_local`` whole clusters, as the reference's
+    disk-resident cluster chunks do (BitVecEngine.cpp:1024-1139), held as an
+    :class:`IVFState` of its own (``shards[r][j]``, row r of the mesh's
+    grid, ids global). The cluster count is padded to a multiple of the
+    shard count with far centroids (1e9, ranked last), zero sizes, poison
+    rows (``poison_pattern`` for int8, 1e15 for bf16) and ids of −1.
+    Queries go through ``parallel.sharded_ivf_search``: each shard probes
+    its local clusters with the same visit fraction (``probe_scan``, K5/K7
+    on the card), the merge takes the global k. ``rescore_rows``/
+    ``rescore_norms`` (the ROW-sharded decoded tier, ``VAQIndex``'s
+    ``_sharded_decoded``/``_sharded_norms``) enable the exact second stage
+    for int8 buckets, assembled across shards."""
+
+    def __init__(self, state: IVFState, visit: float, mesh, q_axis=None,
+                 rescore_rows=None, rescore_norms=None):
+        from vaq_tpu_torch.parallel.sharded import split_rows
+
+        self.rescore_rows = rescore_rows
+        self.rescore_norms = rescore_norms
+        self.visit = float(visit)
+        self.mesh = mesh
+        self.q_axis = q_axis
+        self.cap = state.cap
+        self.seg_dims = state.seg_dims
+        self.d_full = state.d_full
+        self.dim_scales = state.dim_scales
+        nshards = mesh.shape["db"]
+        ncl = state.ncl
+        ncl_pad = -(-ncl // nshards) * nshards
+        padc = ncl_pad - ncl
+        self.ncl_local = ncl_pad // nshards
+        dev = state.bucket_rows.device
+        cents = np.pad(state.centroids, ((0, padc), (0, 0)),
+                       constant_values=1e9)          # far: ranked last
+        if state.bucket_rows.dtype == torch.int8:
+            dead_row = torch.as_tensor(poison_pattern(self.d_full),
+                                       device=dev)
+        else:
+            dead_row = torch.full((self.d_full,), BF16_SENTINEL,
+                                  dtype=state.bucket_rows.dtype, device=dev)
+        rows = state.bucket_rows
+        if padc:
+            rows = torch.cat([rows, dead_row.expand(padc, self.cap,
+                                                    self.d_full)])
+        ids = split_rows(state.bucket_ids, mesh, fill=-1)
+        sizes = split_rows(state.sizes, mesh)
+        rows = split_rows(rows, mesh)
+        grid = mesh.rows("db")
+        self.shards = []
+        for r in range(grid.shape[0]):
+            row = []
+            for j in range(grid.shape[1]):
+                g = mesh.offset("db") + j
+                row.append(IVFState(
+                    centroids=cents[g * self.ncl_local:
+                                    (g + 1) * self.ncl_local],
+                    seg_dims=self.seg_dims, cap=self.cap,
+                    bucket_rows=rows.parts[r][j],
+                    bucket_ids=ids.parts[r][j], sizes=sizes.parts[r][j],
+                    dim_scales=(None if self.dim_scales is None
+                                else self.dim_scales.to(grid[r, j]))))
+            self.shards.append(row)
+
+    def params(self, k: int, nq: int) -> Tuple[int, int, int, int]:
+        """Per-shard (p_visit, p_max, qcap, gs): IVFSearcher.params's rules,
+        the worst shard (over every rank) setting the ≥ k probe floor."""
+        ncl_l = self.ncl_local
+        p_visit = max(1, int(np.ceil(self.visit * ncl_l)))
+        local = torch.stack([st.sizes.to(self.shards[0][0].sizes.device)
+                             for st in self.shards[0]]).cpu().numpy()
+        p_floor = 1
+        for srt in np.sort(local, axis=1):
+            p_floor = max(p_floor,
+                          int(np.searchsorted(np.cumsum(srt), k) + 1))
+        mesh = self.mesh
+        if mesh.group is not None and mesh.group_axis == "db":
+            from vaq_tpu_torch.parallel.sharded import _gather_ranks
+            p_floor = int(_gather_ranks(torch.tensor([p_floor]), mesh.group,
+                                        0).max())
+        p_max = min(ncl_l, max(p_visit, p_floor))
+        qcap = nq if nq <= 256 else probe_ops.pick_qcap(nq, p_max, ncl_l)
+        return p_visit, p_max, qcap, pick_gs(self.cap)
+
+    def poison(self, ids: torch.Tensor) -> None:
+        """``poison_deleted`` on every shard's buckets (global row ids)."""
+        for row in self.shards:
+            for st in row:
+                poison_deleted(st, ids.to(st.bucket_ids.device))
+
+    def search(self, qp: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        from vaq_tpu_torch.parallel.sharded import sharded_ivf_search
+
+        p_visit, p_max, qcap, gs = self.params(k, qp.shape[0])
+        # the exact second stage only pays for int8 buckets (bf16 buckets
+        # already ARE the decoded rows)
+        r_rows = r_norms = None
+        if self.dim_scales is not None and self.rescore_rows is not None:
+            r_rows, r_norms = self.rescore_rows, self.rescore_norms
+        return sharded_ivf_search(
+            self.shards, qp, k, self.mesh, p_visit, p_max, qcap, gs,
+            q_axis=self.q_axis, rescore_rows=r_rows, rescore_norms=r_norms)
 
 
 def attach_ivf(index, verbose: bool = False,

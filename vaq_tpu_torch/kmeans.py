@@ -71,7 +71,11 @@ def assign_clusters(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return _assign_many(x[None], centroids[None])[0]
 
 
-def _lloyd_step_many(xs: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def _cluster_sums(xs: torch.Tensor, c: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's nearest centroid, then per-cluster (sums (G, k, d) f32,
+    counts (G, k) int64) of G independent problems xs (G, n, d), c (G, k, d):
+    the part of a Lloyd step that ``parallel.dist_kmeans`` runs per shard."""
     g, n, d = xs.shape
     k = c.shape[1]
     rows = max(256, _BLOCK_ELEMS // max(g * k, 1))
@@ -88,10 +92,20 @@ def _lloyd_step_many(xs: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         sums += torch.bmm(onehot.transpose(1, 2), xb)
         flat = (assign + k * torch.arange(g, device=xs.device)[:, None]).reshape(-1)
         counts += torch.bincount(flat, minlength=g * k).view(g, k)
-    cnt = counts.to(torch.float32)[:, :, None]
+    return sums, counts
+
+
+def _lloyd_update(sums: torch.Tensor, counts: torch.Tensor, c: torch.Tensor
+                  ) -> torch.Tensor:
+    """New centroids from per-cluster sums and counts."""
+    cnt = counts.to(torch.float32)[..., None]
     new_c = sums / torch.clamp_min(cnt, 1.0)
     # Empty clusters keep the previous centroid.
     return torch.where(cnt > 0, new_c, c)
+
+
+def _lloyd_step_many(xs: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    return _lloyd_update(*_cluster_sums(xs, c), c)
 
 
 def lloyd_many(xs: torch.Tensor, c0: torch.Tensor, iters: int = 25

@@ -13,12 +13,16 @@ Stage mapping (reference file:line → JAX counterpart):
   CRUD     get/append/deleteBitV, BitVecEngine.cpp:1626-1636  vaq.py:824-942
   refine   VAQ::refine  VAQ.cpp:849-876  vaq.py:1063-1075
   interop  saveCentroids/saveCodebook, IO.hpp:736-772  vaq.py:1113-1160
+  shard    disk-resident chunk merge, BitVecEngine.cpp:1441-1624
+                                                   vaq.py:947-1058
 
 ``train`` covers every config, the >8-bit hierarchical and binary-split
 codebooks included (``kmeans.hierarchical_fit``/``binary_split_fit``).
 ``add`` appends encoded rows; ``delete`` tombstones rows, which every tier
 then excludes (+inf norms on the decoded tiers, poisoned probe buckets,
-over-fetch and filter on the codes and LUT paths).
+over-fetch and filter on the codes and LUT paths). ``shard`` splits the
+decoded, int8, codes and probe tiers over a ``parallel.Mesh``, whose shards
+``search_device``/``search`` then scan and merge.
 
 ``search`` serves the JAX package's backends: ``"decoded"`` (bf16 decoded
 rows, a plain GEMM), ``"decoded8"`` (the int8 tier, one scale per
@@ -256,6 +260,16 @@ class VAQIndex:
     _dec_table: Optional[torch.Tensor] = None
     _dec_rows: Optional[torch.Tensor] = None
 
+    # Mesh-sharded tiers (shard()); parallel.sharded.ShardedRows each.
+    _mesh: Optional[object] = None
+    _q_axis: Optional[str] = None
+    _sharded_decoded: Optional[object] = None
+    _sharded_norms: Optional[object] = None
+    _sharded_decoded8: Optional[object] = None
+    _sharded_d8_norms: Optional[object] = None
+    _sharded_codes: Optional[object] = None
+    _sharded_ivf: Optional[object] = None               # ivf.ShardedIVF
+
     def __post_init__(self):
         self.device = resolve(self.device)
 
@@ -266,6 +280,10 @@ class VAQIndex:
     def total_dim(self) -> int:
         """Dims actually used for ADC = M' · L (VAQ.cpp:336)."""
         return self.highest_subs * self.subs_len
+
+    @property
+    def padded_dim(self) -> int:
+        return self.config.subspace_num * self.subs_len
 
     @property
     def max_centroids(self) -> int:
@@ -425,7 +443,8 @@ class VAQIndex:
         array: a memmap slice, a tensor already on the card. Codes are
         written into one preallocated row-major (n, M') buffer, so device
         memory stays O(chunk) + O(codes). Resets the decoded tiers and the
-        probe state, which described the old codes."""
+        probe state and every sharded tier, which described the old
+        codes."""
         if self.centroids is None:
             raise NotReadyError("encode() requires train() first")
         t0 = time.perf_counter()
@@ -441,6 +460,7 @@ class VAQIndex:
         self.decoded_norms = None
         self.decoded8 = self.decoded8_scales = self.decoded8_norms = None
         self.ivf = None
+        self._release_shards()
         if verbose:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -542,23 +562,48 @@ class VAQIndex:
                 f"u8). This index allocates up to {int(self.bits.max())} bits "
                 "— use backend='decoded' or cap the config at max8.")
 
-    def _codes_block_rows(self, k: int) -> Optional[int]:
+    def _codes_block_rows(self, k: int, rows: Optional[int] = None
+                          ) -> Optional[int]:
         """Window size for the codes tier, unchanged from the JAX version
-        (vaq.py:506-528): the window size decides which candidates survive,
-        so changing it changes results.
+        (vaq.py:506-528, and :1037-1039 for a shard): the window size decides
+        which candidates survive, so changing it changes results.
 
         The window scan keeps one candidate per (query, window), so recall
         needs windows ≫ k: aim for ≥ 64 windows per requested neighbour,
-        floor at 16 rows, cap at 512. Returns None when even 16-row windows
-        cannot give 64·k windows — the caller serves the decoded tier then
-        (the same ADC quantity, and the decoded db is tiny at such n) —
-        unless the decoded db would exceed ~1 GB."""
-        br = self.n_rows // (64 * k)
+        floor at 16 rows, cap at 512. ``rows`` is what one scan covers: the
+        whole index by default, a shard's rows on a mesh. Returns None when
+        even 16-row windows cannot give 64·k windows over the whole index —
+        the caller serves the decoded tier then (the same ADC quantity, and
+        the decoded db is tiny at such n) — unless the decoded db would
+        exceed ~1 GB; a shard always takes windows (16 rows at least)."""
+        br = (self.n_rows if rows is None else rows) // (64 * k)
         if br < 16:
-            if self.n_rows * self.total_dim * 2 > (1 << 30):
+            if rows is not None or \
+                    self.n_rows * self.total_dim * 2 > (1 << 30):
                 return 16
             return None
         return 1 << (min(br, 512).bit_length() - 1)
+
+    def _live_fetch(self, k: int) -> int:
+        """How many the codes tier fetches for k live answers: it has no
+        norms to poison, so it over-fetches k + #deleted and
+        :meth:`_drop_deleted` filters by id on the device."""
+        n_del = 0 if self.deleted_ids is None else len(self.deleted_ids)
+        return min(k + n_del, self.n_rows)
+
+    def _drop_deleted(self, d: torch.Tensor, i: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The k lowest live entries of a codes-tier answer fetched with
+        :meth:`_live_fetch` (tie-exact, as JAX's ``lax.top_k``); dead ids
+        become (inf, -1)."""
+        if self.deleted_ids is None or len(self.deleted_ids) == 0:
+            return d[:, :k], i[:, :k]
+        dead = torch.isin(i, self._deleted_device().to(i.device))
+        d = torch.where(dead, torch.inf, d)
+        i = torch.where(dead, -1, i)
+        top, pos = scan_codes._select_lowest(d, k)
+        i = torch.gather(i, 1, pos)
+        return top, torch.where(torch.isfinite(top), i, -1)
 
     def _codes_tier(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Lazily built (bf16 decode table, f32 decode rows) for the codes
@@ -582,37 +627,37 @@ class VAQIndex:
         "decoded", "decoded8" or "codes"; the LUT backends raise ConfigError
         here and run through ``search`` (the JAX ``search_device`` serves
         the decoded tier for them instead, vaq_tpu/vaq.py:486-489). Returns
-        (sq_dists (nq, k) f32 ascending, labels (nq, k) int32)."""
+        (sq_dists (nq, k) f32 ascending, labels (nq, k) int32). When the
+        index was ``shard()``-ed, the mesh-sharded scan serves the tier, and
+        a tier that was not sharded raises ConfigError."""
         if backend not in ("decoded", "decoded8", "codes"):
             if backend in BACKENDS:
                 raise ConfigError(
                     f"search_device serves 'decoded', 'decoded8' and "
                     f"'codes'; backend {backend!r} runs through search()")
             raise ConfigError(f"unknown backend {backend!r}")
+        if self._mesh is not None:
+            sharded_tier = {"decoded": self._sharded_decoded,
+                            "decoded8": self._sharded_decoded8,
+                            "codes": self._sharded_codes}[backend]
+            if sharded_tier is None:
+                raise ConfigError(
+                    f"index is sharded but tier {backend!r} was not "
+                    "included in shard(tiers=...) — serving it unsharded "
+                    "would silently ignore the mesh; re-shard with tiers "
+                    "including it")
+            return self._search_device_sharded(queries_dev, k, backend)
         if backend == "codes":
             self._require_codes_bits()
             br = self._codes_block_rows(k)
             if br is None:
                 backend = "decoded"
             else:
-                # Tombstones: the codes tier has no norms to poison, so it
-                # over-fetches k + #deleted and filters by id on the device.
                 dec_table, dec_rows = self._codes_tier()
                 qp = pca.project(queries_dev, self._eigvecs_device())
-                n_del = (0 if self.deleted_ids is None
-                         else len(self.deleted_ids))
-                k_fetch = min(k + n_del, self.n_rows)
-                d, i = scan_codes.decode_scan_topk(
-                    self.codes, dec_table, dec_rows, qp, k_fetch,
-                    block_rows=br)
-                if n_del == 0:
-                    return (d, i) if k_fetch == k else (d[:, :k], i[:, :k])
-                dead = torch.isin(i, self._deleted_device())
-                d = torch.where(dead, torch.inf, d)
-                i = torch.where(dead, -1, i)
-                top, pos = scan_codes._select_lowest(d, k)
-                i = torch.gather(i, 1, pos)
-                return top, torch.where(torch.isfinite(top), i, -1)
+                return self._drop_deleted(*scan_codes.decode_scan_topk(
+                    self.codes, dec_table, dec_rows, qp, self._live_fetch(k),
+                    block_rows=br), k)
         if backend == "decoded8":
             self._ensure_decoded8()
             return scan_decoded.decoded8_scan_topk(
@@ -663,6 +708,13 @@ class VAQIndex:
         if route == "ivf" and self.ivf is None:
             raise NotReadyError(
                 "backend='ivf' requires ivf.attach_ivf(index) first")
+        if route == "ivf" and self._mesh is not None and \
+                self._sharded_ivf is None:
+            raise ConfigError(
+                "index is sharded but the TI/IVF tier was not included in "
+                "shard(tiers=...) — serving the unsharded probe state would "
+                "silently ignore the mesh; re-shard with tiers including "
+                "'ivf'")
         queries = np.asarray(queries, dtype=np.float32)
         if queries.ndim != 2:
             raise ShapeError(f"queries must be (nq, d), got {queries.shape}")
@@ -680,7 +732,10 @@ class VAQIndex:
         for start in range(0, nq, query_batch):
             qb = torch.as_tensor(queries[start:start + query_batch],
                                  device=self.device)
-            if route == "ivf":
+            if route == "ivf" and self._sharded_ivf is not None:
+                d, i = self._sharded_ivf.search(
+                    pca.project(qb, self._eigvecs_device()), k)
+            elif route == "ivf":
                 d, i = self.ivf.search(
                     self, pca.project(qb, self._eigvecs_device()), k)
             elif route in LUT_ROUTES:
@@ -772,7 +827,8 @@ class VAQIndex:
         (vaq_tpu/vaq.py:824-854). A resident decoded tier grows by the new
         rows; the int8 tier is dropped and rebuilt lazily. The probe buckets
         stay as they were, as in JAX: the IVF path never returns an added
-        row until ``attach_ivf`` runs again."""
+        row until ``attach_ivf`` runs again. Every sharded tier is released
+        (``shard`` again after adds)."""
         if self.codes is None:
             raise NotReadyError("add() requires encode() first")
         cent_dev = torch.as_tensor(self.centroids, device=self.device)
@@ -786,6 +842,7 @@ class VAQIndex:
             self.decoded = torch.cat([self.decoded, dec])
             self.decoded_norms = torch.cat([self.decoded_norms, norms])
         self.decoded8 = self.decoded8_scales = self.decoded8_norms = None
+        self._release_shards()
         return np.arange(start, self.n_rows)
 
     def delete(self, ids) -> None:
@@ -794,7 +851,8 @@ class VAQIndex:
         +inf norms, set here on every resident tier and again on any
         rebuild; the probe by ``bucket_ids == -1``, its buckets poisoned
         here (``ivf.poison_deleted``); the codes and LUT paths over-fetch
-        and filter by id in ``search``."""
+        and filter by id in ``search``. The sharded tiers get the same:
+        +inf on the sharded norms, poison in the sharded buckets."""
         ids = np.atleast_1d(np.asarray(ids, dtype=np.int64))
         if self.deleted_ids is None:
             self.deleted_ids = np.unique(ids)
@@ -810,6 +868,13 @@ class VAQIndex:
             self.decoded8_norms[dev_ids] = torch.inf
         if self.ivf is not None:
             poison_deleted(self.ivf.state, dev_ids)
+        # the sharded tiers likewise: +inf norms, poisoned probe buckets
+        live = ids[(ids >= 0) & (ids < self.n_rows)]
+        for norms in (self._sharded_norms, self._sharded_d8_norms):
+            if norms is not None:
+                norms.fill_rows(live, torch.inf)
+        if self._sharded_ivf is not None:
+            self._sharded_ivf.poison(dev_ids)
 
     def get_codes(self, ids) -> np.ndarray:
         """Raw codes of rows (the getBitV analog), in the JAX package's
@@ -826,6 +891,111 @@ class VAQIndex:
         for s in range(self.highest_subs):
             out[:, s * l:(s + 1) * l] = self.centroids[s][codes[:, s]]
         return out
+
+    # ------------------------------------------------------------------
+    # Serving over a mesh: the tiers sharded by rows (vaq.py:947-1058)
+    # ------------------------------------------------------------------
+    def shard(self, mesh=None, q_axis: Optional[str] = None,
+              tiers: Tuple[str, ...] = ("decoded",)) -> "VAQIndex":
+        """Row-shard database tiers over the mesh's "db" axis
+        (``parallel.make_mesh()``, every visible card, by default).
+
+        ``tiers`` selects which tiers get a sharded path: "decoded" (bf16,
+        2·D B/row), "decoded8" (int8, D B/row), "codes" (the raw codes, M
+        B/row; kernels K1/K2 per shard) and/or "ivf" (the probe buckets,
+        sharded by whole clusters; requires ``attach_ivf`` first; kernels
+        K5/K7 per shard). After this, ``search_device``/``search`` with a
+        matching backend run the sharded scan, each shard's top-k merged on
+        the mesh's first device; a backend whose tier was NOT sharded
+        raises instead of silently serving unsharded. The sharded decoded
+        tier also gives the sharded int8 probe its exact second stage. Pass
+        ``q_axis="q"`` on a 2-D ("q", "db") mesh to split the queries.
+
+        Every sharded tier lives on the mesh of the last call: tiers that an
+        earlier call sharded are laid out again on this mesh (a tier's parts
+        follow the mesh they were split for, and the searches walk the
+        index's one mesh), so their answers are this mesh's. (JAX leaves
+        them on the earlier mesh's devices, and its search refuses them.)"""
+        from vaq_tpu_torch.parallel import make_mesh
+        from vaq_tpu_torch.parallel.sharded import split_rows
+
+        unknown = set(tiers) - {"decoded", "decoded8", "codes", "ivf"}
+        if unknown:
+            raise ConfigError(f"unknown shard tiers: {sorted(unknown)}")
+        if "ivf" in tiers and self.ivf is None:
+            raise ConfigError(
+                "shard tier 'ivf' requires attach_ivf() first (the probe "
+                "state to shard)")
+        if "codes" in tiers:
+            self._require_codes_bits()
+        mesh = mesh if mesh is not None else make_mesh()
+        tiers = set(tiers) | self._sharded_tiers()
+        self._release_shards()
+        if "decoded" in tiers:
+            self._ensure_decoded()
+            self._sharded_decoded = split_rows(self.decoded, mesh)
+            self._sharded_norms = split_rows(self.decoded_norms, mesh,
+                                             fill=torch.inf)
+        if "ivf" in tiers:
+            from vaq_tpu_torch.ivf import ShardedIVF
+            self._sharded_ivf = ShardedIVF(
+                self.ivf.state, self.ivf.visit, mesh, q_axis,
+                rescore_rows=self._sharded_decoded,
+                rescore_norms=self._sharded_norms)
+        if "decoded8" in tiers:
+            self._ensure_decoded8()
+            self._sharded_decoded8 = split_rows(self.decoded8, mesh)
+            self._sharded_d8_norms = split_rows(self.decoded8_norms, mesh,
+                                                fill=torch.inf)
+        if "codes" in tiers:
+            self._codes_tier()  # the (small, replicated) decode tables
+            self._sharded_codes = split_rows(self.codes, mesh)
+        self._mesh = mesh
+        self._q_axis = q_axis
+        return self
+
+    def _sharded_tiers(self) -> set:
+        """The names of the tiers that are sharded now."""
+        return {name for name, part in (
+            ("decoded", self._sharded_decoded),
+            ("decoded8", self._sharded_decoded8),
+            ("codes", self._sharded_codes), ("ivf", self._sharded_ivf))
+            if part is not None}
+
+    def _release_shards(self) -> None:
+        """Drop the mesh and every sharded buffer (after the rows change;
+        ``shard`` again to serve sharded)."""
+        self._mesh = self._q_axis = None
+        self._sharded_decoded = self._sharded_norms = None
+        self._sharded_decoded8 = self._sharded_d8_norms = None
+        self._sharded_codes = self._sharded_ivf = None
+
+    def _search_device_sharded(self, queries_dev: torch.Tensor, k: int,
+                               backend: str = "decoded"
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        from vaq_tpu_torch.parallel import (sharded_codes_search,
+                                            sharded_decoded8_search,
+                                            sharded_decoded_search)
+
+        qp = pca.project(queries_dev, self._eigvecs_device())
+        if backend == "decoded":
+            return sharded_decoded_search(
+                self._sharded_decoded, self._sharded_norms, qp, k,
+                self.n_rows, self._mesh, q_axis=self._q_axis)
+        if backend == "decoded8":
+            return sharded_decoded8_search(
+                self._sharded_decoded8, self.decoded8_scales,
+                self._sharded_d8_norms, qp, k, self.n_rows, self._mesh,
+                q_axis=self._q_axis)
+        # codes tier: a shard's rows set the window size; tombstones are
+        # filtered by id after the merge, as on the unsharded codes path
+        dec_table, dec_rows = self._codes_tier()
+        return self._drop_deleted(*sharded_codes_search(
+            self._sharded_codes, dec_table, dec_rows, qp, self._live_fetch(k),
+            self.n_rows, self._mesh,
+            block_rows=self._codes_block_rows(
+                k, self._sharded_codes.shard_rows),
+            q_axis=self._q_axis), k)
 
     # ------------------------------------------------------------------
     # LUT quantization (V16)
