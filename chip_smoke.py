@@ -5,7 +5,7 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``, one
-``nvcc`` per source, all at once) and runs fourteen phases, printing progress
+``nvcc`` per source, all at once) and runs fifteen phases, printing progress
 as it goes:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc
@@ -54,7 +54,14 @@ as it goes:
    batch by kernel, its busy share taken against the batch's unprofiled
    wall; K1/K2's launch counters are zeroed just before it and must have
    moved just after; then a codes search at k = 200 (64-row windows) with
-   K1's counter zeroed just before it;
+   K1's counter zeroed just before it; then ``[kcheck]``: the package's
+   kernel gate, ``kernel_check.kernel_parity_fields``, on this index with
+   its first 128 queries (K1 at 64/32/16-row windows, K2 and K3, here in
+   the gather form, on its first 65,536 codes; K5, K7 and H1 at their
+   seeded shapes), every counter zeroed just before and read just after,
+   ``kernel_parity_ok`` required; the same on the ``[fast]`` index after
+   ``learn_quantization`` (K3 on the tensor cores, K4), its launches
+   joining the kernels line's ``launches_by_path`` as ``"kcheck"``;
 5. the TI/IVF path on the same index: ``attach_ivf`` with 1000 clusters
    over 16 subspaces (``bench.py:642-643``), searches at visit 0.25, 0.10,
    0.05 (the reference's Fig. 11 sweep) and 1.0, k = 100, and one search on
@@ -136,7 +143,12 @@ as it goes:
 12. ``[cli]``: ``vaq_tpu_torch.cli.demo_vaq.main`` on 100,000 synthetic
    rows, ``--backend codes --refine 100,200``, its printed lines kept, and
    on 102,400 rows, where refine 100's search runs K1/K2 (counted; K1's
-   16-row windows are held against the plain version in phase 3);
+   16-row windows are held against the plain version in phase 3); then at
+   1M × 128 ``demo_cluster`` (k = 100, 25 iterations, simple, fast and
+   kmeans++, each cluster index within 1% of the same command's CPU
+   reading), ``demo_boltcentroids --subspace 32`` (512 centroids of 4
+   finite numbers) and ``demo_vaq_paramsearch`` on JAX's default grid (its
+   seven rows; ``METHOD``'s within 0.005 of phase 4's decoded recall);
 13. one index state searched on the card and through the port's CPU plain
    versions at n = 20k (the decoded and codes tiers, refine, an IVF state
    built on the card and copied to the CPU at d = 128 and d = 96, that
@@ -293,6 +305,32 @@ CLI_MIN_RECALL = (0.5588, 0.7931)
 # CLI_CODES_CPU_RECALL; the card must come within 0.02.
 CLI_CODES_ARGS = ["--synthetic", "102400", *CLI_ARGS[2:]]
 CLI_CODES_CPU_RECALL = (0.5779, 0.8051)
+# [cli]'s clustering demos at the main path's shape, 1M × 128, on their own
+# synthetic rows (make_anisotropic_gaussian at seed 0, as JAX's demos draw
+# them): demo_cluster k = 100, 25 iterations, silhouette, in three versions
+# (kmeans++ seeds on the host, D² over all 1M rows), demo_boltcentroids over
+# 32 subspaces, and demo_vaq_paramsearch on JAX's default grid over the main
+# path's rows and queries (make_sift_like draws them at seed 42, k = 100).
+CLUSTER_ARGS = ["--synthetic", "1000000", "--timeseries-size", "128", "--k",
+                "100", "--iters", "25", "--silhouette"]
+# The same commands under VAQ_TPU_PLATFORM=cpu read these cluster indexes
+# (the same seeds; f32 sums in another order); the card must come within 1%.
+CLUSTER_CPU_INDEX = {"simple": 24.430342, "fast": 26.231831,
+                     "kmeanspp": 9.776003}
+BOLT_ARGS = ["--synthetic", "1000000", "--timeseries-size", "128",
+             "--subspace", "32"]
+PARAMSEARCH_ARGS = ["--synthetic", "1000000", "--timeseries-size", "128",
+                    "--queries-size", "1000", "--k", "100"]
+# JAX's default grid (--subspaces 16,32,64 --min-bits 1,2,4,7 --max-bits 8)
+# at budget 256: m = 16 cannot hold 256 bits, m = 64 cannot spend 7 a
+# subspace, so these seven train, in this order. The (32, 7, 8) row is
+# METHOD on [main]'s data: its recall must come within 0.005 of [main]'s
+# decoded tier, the tier search(backend="auto") serves.
+PARAMSEARCH_ROWS = [[32, 1, 8], [32, 2, 8], [32, 4, 8], [32, 7, 8],
+                    [64, 1, 8], [64, 2, 8], [64, 4, 8]]
+# [kcheck]: the package's kernel gate on [main]'s index and on [fast]'s
+# after learn_quantization, with the first KCHECK_NQ queries
+KCHECK_NQ = 128
 # [binary]: the BitVecEngine at the main path's 1M × 128 rows, queries and
 # groundtruth: BinaryIndex(256) (demo_binary.cpp's default budget, bench.py:567)
 # trained and encoded on all rows, k = 100; the progressive filters over 4
@@ -400,47 +438,14 @@ def _entry(name, source, replaces, err, ms, plain_ms, bound, library_ms):
 
 
 def _assert_within_terms(got, ref, scale, what, rtol=RTOL_KERNEL):
-    """Same finite pattern, and |got − ref| ≤ rtol · scale elementwise,
-    ``scale`` being the size of the terms each result sums (f64)."""
+    """``kernel_check.scores_within``: same finite pattern, |got − ref| ≤
+    rtol · scale elementwise, ``scale`` being the size of the terms each
+    result sums (f64); returns the largest |got − ref|."""
+    from vaq_tpu_torch.ops import kernel_check
+    ok, detail = kernel_check.scores_within(got, ref, scale, rtol)
+    assert ok, f"{what}: {detail}"
     fin = torch.isfinite(ref)
-    assert torch.equal(torch.isfinite(got), fin), f"{what}: finite pattern"
-    err = ((got[fin] - ref[fin]).double().abs() / scale[fin]).max()
-    assert float(err) <= rtol, f"{what}: {float(err):.3g} of the terms"
     return float((got[fin] - ref[fin]).abs().max())
-
-
-def _groupmin_scale(qsl, rows, w, ncl, cap, gs, chunk):
-    """Per (cluster, slot, group): Σ_d|qsl_d·x_d| + Σ w·x² + qn at the
-    group's smallest row, in f64 — the size of the terms K5 sums."""
-    qcap, d = qsl.shape[1:]
-    out = torch.empty((ncl, qcap, cap // gs), dtype=torch.float64,
-                      device=qsl.device)
-    wd = w.double()
-    for c0 in range(0, ncl, chunk):
-        qf = qsl[c0:c0 + chunk].double()
-        r = rows.view(ncl, cap, d)[c0:c0 + chunk].double()
-        xn = (r * r * wd).sum(2)[:, None, :]
-        qn = 0.25 * (qf * qf).sum(2)[:, :, None]
-        dist = torch.bmm(qf, r.transpose(1, 2)) + xn + qn
-        size = torch.bmm(qf.abs(), r.abs().transpose(1, 2)) + xn + qn
-        at = dist.view(qf.shape[0], qcap, -1, gs).argmin(3, keepdim=True)
-        out[c0:c0 + chunk] = size.view(qf.shape[0], qcap, -1, gs).gather(
-            3, at)[..., 0]
-    return out
-
-
-def _rescore_scale(q, w, rows, wblk, gs, chunk=64):
-    """Per score: 2·Σ_d|q_d·x_d| + Σ w·x², q rounded to bf16, in f64 — the
-    size of the terms K7 sums."""
-    qb = q.to(torch.bfloat16).double()
-    d = rows.shape[1]
-    out = torch.empty(wblk.shape + (gs,), dtype=torch.float64, device=q.device)
-    for q0 in range(0, q.shape[0], chunk):
-        blk = rows.view(-1, gs, d)[wblk[q0:q0 + chunk].long()].double()
-        out[q0:q0 + chunk] = (2 * torch.einsum("qd,qmgd->qmg", qb[q0:q0 + chunk].abs(),
-                                               blk.abs())
-                              + torch.einsum("qmgd,d->qmg", blk * blk, w.double()))
-    return out
 
 
 def _probe_rows(gen, d, dtype, ncl=KC_NCL, cap=KC_CAP):
@@ -499,7 +504,7 @@ def _held_groupmin(args, name: str, what: str, tag: str = "kernels",
     these inputs need: those clusters' rows, the live slots' slab, the
     minima, and the products of live slots only. The library yardstick
     (``library``) is one bf16 ``bmm`` of every slab against its bucket."""
-    from vaq_tpu_torch.ops import probe_scan
+    from vaq_tpu_torch.ops import kernel_check, probe_scan
     qsl, rows, w, ncl, cap, gs, n_slots = args
     qcap, d = qsl.shape[1:]
     got = probe_scan.groupmin_window_scan(*args)
@@ -509,15 +514,14 @@ def _held_groupmin(args, name: str, what: str, tag: str = "kernels",
     assert torch.equal(torch.isfinite(got), torch.isfinite(ref)), name
     if n_slots is None:
         live_c, live = ncl, ncl * qcap
-        scale = _groupmin_scale(qsl, rows, w, ncl, cap, gs,
-                                chunk=max(1, min(100, (1 << 26) // (qcap * cap))))
+        scale = kernel_check.groupmin_term_scale(qsl, rows, w, ncl, cap, gs)
         err = _assert_within_terms(got, ref, scale, f"K5 {what}")
     else:
         held = torch.nonzero(n_slots > 0)[:, 0]
         live_c, live = held.numel(), int(n_slots.sum())
         sub_rows = rows.view(ncl, cap, d)[held].view(-1, d)
-        scale = _groupmin_scale(qsl[held], sub_rows, w, live_c, cap, gs,
-                                chunk=max(1, min(100, (1 << 26) // (qcap * cap))))
+        scale = kernel_check.groupmin_term_scale(qsl[held], sub_rows, w,
+                                                 live_c, cap, gs)
         err = _assert_within_terms(got[held], ref[held], scale, f"K5 {what}")
         del sub_rows
     del scale, ref
@@ -568,7 +572,7 @@ def _check_rescore(gen, d: int, dtype: str, nq: int = KC_NQ,
 def _held_rescore(args, name: str, what: str, tag: str = "kernels") -> dict:
     """K7 against its plain version on ``args`` (q, w, rows, wblk, gs);
     tolerance 1e-5 of the terms summed."""
-    from vaq_tpu_torch.ops import rescore
+    from vaq_tpu_torch.ops import kernel_check, rescore
     q, w, rows, wblk, gs = args
     nq, win = wblk.shape
     d = rows.shape[1]
@@ -577,7 +581,8 @@ def _held_rescore(args, name: str, what: str, tag: str = "kernels") -> dict:
     ref = rescore.gather_rescore_ref(*args)
     torch.cuda.synchronize()
     assert got.shape == (nq, win, gs)
-    err = _assert_within_terms(got, ref, _rescore_scale(*args), f"K7 {what}")
+    err = _assert_within_terms(got, ref, kernel_check.rescore_term_scale(*args),
+                               f"K7 {what}")
     del ref
     ms = _time_ms(lambda: rescore.gather_rescore(*args), 20)
     plain = _time_ms(lambda: rescore.gather_rescore_ref(*args), 5)
@@ -602,31 +607,19 @@ def _held_rescore(args, name: str, what: str, tag: str = "kernels") -> dict:
                   err, ms, plain, bound, None)
 
 
-def _k3_winners_tie(codes, luts, q_idx, ids_a, ids_b, rtol) -> bool:
-    """Whether rows ``ids_a`` and ``ids_b`` of queries ``q_idx`` have K3
-    sums (bf16 entries, in f64) that agree to ``rtol``."""
-    lut_bf = luts.to(torch.bfloat16).double()
-    sub = torch.arange(codes.shape[1], device=codes.device)
-
-    def sums(ids):
-        return lut_bf[q_idx[:, None], sub[None, :], codes[ids.long()].long()].sum(1)
-
-    a, b = sums(ids_a), sums(ids_b)
-    return bool(torch.all((a - b).abs() <= rtol * b.abs() + 1e-6))
-
-
 def _check_fast4(rng, shape, int8: bool, rounding: str) -> dict:
     """K3 (f32 LUT) or K4 (s8 LUT) against its plain version, in the form
     the wrapper's shape rule picks (``scan_codes._fast4_form``). K4's keys,
     and K3's in the gather form or where the tensor cores add to nearest
     (``rounding``), must equal the plain version's bit for bit; otherwise
-    K3's scores agree to 1e-5 + 2^(idx_bits − 23) relative and a window's
-    winner differs only where the two rows' sums agree to that in f64. The
+    K3 is held by ``kernel_check.k3_check``: scores within 1e-5 +
+    2^(idx_bits − 23) relative, and a window's winner differs only where
+    the two rows' sums agree to that in f64. The
     library yardstick multiplies a one-hot of the codes (built outside the
     timing) by the LUT on the tensor cores: bf16 ``matmul`` for K3,
     ``_int_mm`` for K4. The bound counts that one-hot form (2·nq·n·M·C
     operations) against the bytes of codes, LUT and keys."""
-    from vaq_tpu_torch.ops import scan_codes
+    from vaq_tpu_torch.ops import kernel_check, scan_codes
     dev = torch.device(DEVICE)
     n, m, c, nq, br = shape
     n_pad = n + (-n) % (scan_codes.W_PER_CELL * br)
@@ -649,15 +642,12 @@ def _check_fast4(rng, shape, int8: bool, rounding: str) -> dict:
             f"{name} keys differ from the plain version at {shape}"
         check = "keys equal"
     else:
-        rtol = RTOL_KERNEL + 2.0 ** ((br - 1).bit_length() - 23)
-        torch.testing.assert_close(s_k, s_r, rtol=rtol, atol=1e-6)
-        q_idx, w_idx = torch.nonzero(i_k != i_r, as_tuple=True)
-        ties = len(q_idx)
-        if ties:
-            assert _k3_winners_tie(codes, luts, q_idx, i_k[q_idx, w_idx],
-                                   i_r[q_idx, w_idx], rtol), \
-                f"K3 winners differ beyond a tie at {shape}"
-        check = (f"scores within {rtol:.3g}, {ties} id ties of {i_k.numel()}, "
+        ok, detail = kernel_check.k3_check(codes, luts, br, (s_k, i_k),
+                                           (s_r, i_r))
+        assert ok, f"K3 at {shape}: {detail}"
+        check = (f"scores within {kernel_check.k1_rtol(br):.3g} "
+                 f"({detail['max_err_over_tol']:.3g} of it), "
+                 f"{detail['id_mismatches']} id ties of {i_k.numel()}, "
                  f"max|Δscore| {float((s_k - s_r).abs().max()):.3g}")
     err = float((s_k.double() - s_r.double()).abs().max())
     ms = _time_ms(lambda: scan_codes.fast4_window_scan(codes, luts, br, n_win), 10)
@@ -690,54 +680,6 @@ def _check_fast4(rng, shape, int8: bool, rounding: str) -> dict:
     return entry
 
 
-def _k1_winners_tie(codes, table, qp, q_idx, ids_a, ids_b, rtol,
-                    scale=None) -> bool:
-    """Whether rows ``ids_a`` and ``ids_b`` of queries ``q_idx`` score the
-    same to ``rtol`` in f64 by K1's own formula (bf16 decode, bf16 query in
-    the dot, f32 query in ‖q‖²): of the score, or of ``scale``, the size of
-    the terms summed, where given."""
-    c, d = table.shape
-    m = codes.shape[1]
-    q64 = qp.to(torch.bfloat16).double()[q_idx]
-    qn = (qp * qp).sum(1).double()[q_idx]
-    tbl = table.double().reshape(c, m, d // m)
-    sub = torch.arange(m, device=codes.device)
-
-    def score(ids):
-        x = tbl[codes[ids.long()].long(), sub].reshape(-1, d)
-        return (x * x).sum(1) - 2 * (x * q64).sum(1) + qn
-
-    a, b = score(ids_a), score(ids_b)
-    size = b.abs() if scale is None else scale.double()
-    return bool(torch.all((a - b).abs() <= rtol * size + 1e-5))
-
-
-def _k1_terms(codes, table, qp, ids, q_block: int = 8) -> torch.Tensor:
-    """Per (query, window): ‖x̂‖² + 2·Σ_d|q_d·x̂_d| + ‖q‖² at the row
-    ``ids`` (q rounded to bf16 in the dot; rows past n decode as code 0),
-    the size of the terms K1 sums, from per-subspace tables."""
-    n, m = codes.shape
-    c, d = table.shape
-    nq = qp.shape[0]
-    dev = codes.device
-    t = table.float().view(c, m, d // m)
-    sub_norm = (t * t).sum(2).T.contiguous()                       # (M, C)
-    q_abs = qp.to(torch.bfloat16).float().abs().view(nq, m, d // m)
-    dots = torch.einsum("qml,cml->qmc", q_abs, t.abs())           # (nq, M, C)
-    qn = (qp * qp).sum(1)
-    sub = torch.arange(m, device=dev)
-    out = torch.empty(ids.shape, dtype=torch.float32, device=dev)
-    for q0 in range(0, nq, q_block):
-        blk = ids[q0:q0 + q_block].long()
-        cod = codes[blk.clamp_max(n - 1)].long()
-        cod = torch.where((blk >= n)[..., None], 0, cod)          # (qb, nw, M)
-        qi = torch.arange(q0, q0 + blk.shape[0], device=dev)[:, None, None]
-        out[q0:q0 + q_block] = (sub_norm[sub, cod].sum(2)
-                                + 2.0 * dots[qi, sub, cod].sum(2)
-                                + qn[q0:q0 + q_block, None])
-    return out
-
-
 def _check_k1(rng, shape) -> tuple[dict, torch.Tensor]:
     """K1 on seeded codes, centroids and queries at one 1M shape (n, M, C,
     L, nq, block_rows), held against its plain version by :func:`_held_k1`.
@@ -759,47 +701,37 @@ def _check_k1(rng, shape) -> tuple[dict, torch.Tensor]:
 def _held_k1(codes, table, qp, br: int, name: str, tag: str = "kernels",
              library: bool = True, reps: int = 20, plain_reps: int = 3,
              of_terms: bool = False) -> tuple[dict, torch.Tensor, torch.Tensor]:
-    """K1 against its plain version on the given inputs: scores within
-    1e-5 + 2^(idx_bits − 23) relative, and ids differing only where the two
-    rows tie to that in f64 (the tensor cores sum the dot in another order,
-    and the key keeps 23 − idx_bits mantissa bits). Relative to the score
-    on seeded data, where a window's minimum is of the size of its terms;
-    with ``of_terms``, relative to the size of the terms summed
-    (:func:`_k1_terms`), as K5/K7 are held: on a real index a query's near
-    rows score far below their norms, and f32 sums in another order differ
-    by a fraction of the terms, not of the score. The library yardstick
+    """K1 against its plain version on the given inputs by
+    ``kernel_check.k1_check``: scores within 1e-5 + 2^(idx_bits − 23)
+    relative, and ids differing only where the two rows tie to that in f64
+    (the tensor cores sum the dot in another order, and the key keeps
+    23 − idx_bits mantissa bits), on at most 1% of the windows. Relative to
+    the score on seeded data, where a window's minimum is of the size of
+    its terms; with ``of_terms``, relative to the size of the terms summed
+    (``kernel_check.k1_terms``), as K5/K7 are held: on a real index a
+    query's near rows score far below their norms, and f32 sums in another
+    order differ by a fraction of the terms, not of the score. The library yardstick
     (``library``) is one bf16 GEMM of the queries against the decoded rows
     (decoded outside the timing). Returns the entry, the window scores and
     their row ids."""
-    from vaq_tpu_torch.ops import scan_codes
+    from vaq_tpu_torch.ops import kernel_check, scan_codes
     dev = codes.device
     n, m = codes.shape
     c, d = table.shape
     l, nq = d // m, qp.shape[0]
-    rtol = RTOL_KERNEL + 2.0 ** ((br - 1).bit_length() - 23)
     s_k, i_k = scan_codes.decode_window_scan(codes, table, qp, br)
     s_r, i_r = scan_codes.decode_window_scan_ref(codes, table, qp, br)
     torch.cuda.synchronize()
     assert s_k.shape == (nq, -(-n // br)) and torch.isfinite(s_k).all(), name
-    scale = None
-    if of_terms:
-        scale = _k1_terms(codes, table, qp, i_r)
-        _assert_within_terms(s_k, s_r, scale, f"K1 {name}", rtol)
-    else:
-        torch.testing.assert_close(s_k, s_r, rtol=rtol, atol=1e-5)
-    diff = (i_k != i_r).nonzero()
-    if len(diff):
-        assert _k1_winners_tie(codes, table, qp, diff[:, 0],
-                               i_k[diff[:, 0], diff[:, 1]],
-                               i_r[diff[:, 0], diff[:, 1]], rtol,
-                               None if scale is None
-                               else scale[diff[:, 0], diff[:, 1]]), \
-            f"K1 winners differ beyond a tie: {name}"
+    ok, detail = kernel_check.k1_check(codes, table, qp, (s_k, i_k),
+                                       (s_r, i_r), br, of_terms=of_terms)
+    assert ok, f"K1 {name}: {detail}"
     err = float((s_k - s_r).abs().max())
     rel = float(((s_k - s_r).abs() / s_r.abs().clamp_min(1e-30)).max())
-    of = ("" if scale is None else
-          f" ({float(((s_k - s_r).abs() / scale).max()):.3g} of the terms)")
-    del s_r, i_r, scale
+    of = (f" ({detail['max_err_over_tol']:.3g} of the tolerance on the "
+          "terms)" if of_terms else "")
+    ties = detail["id_mismatches"]
+    del s_r, i_r
     ms = _time_ms(lambda: scan_codes.decode_window_scan(codes, table, qp, br),
                   reps)
     plain = _time_ms(lambda: scan_codes.decode_window_scan_ref(codes, table, qp, br),
@@ -815,7 +747,7 @@ def _held_k1(codes, table, qp, br: int, name: str, tag: str = "kernels",
     bound = _bound(n * m + table.numel() * 2 + qp.numel() * 4 + s_k.numel() * 4,
                    ops, "bf16")
     log(f"[{tag}] K1 decode_window_scan n={n} M={m} C={c} L={l} nq={nq} br={br}: "
-        f"max|Δscore| {err:.3g}, {rel:.3g} of the score{of}, {len(diff)} id "
+        f"max|Δscore| {err:.3g}, {rel:.3g} of the score{of}, {ties} id "
         f"ties of {i_k.numel()}, kernel "
         f"{ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s, {100 * bound[0] / ms:.1f}% "
         f"of the bound), plain {plain:.3f} ms, "
@@ -1856,6 +1788,7 @@ def phase_fast_path(ctx: dict) -> dict:
     launches = {"fast4_window_scan": k3, "fast4_window_scan_int8": k4,
                 "decode_window_scan_c16": k1}
     log(f"[fast] kernel launches during the FAST path: {launches}")
+    ctx["fast_idx"] = idx           # quantized: [kcheck]'s second index
     return launches
 
 
@@ -2108,35 +2041,78 @@ def phase_binary(ctx: dict) -> tuple[dict, list[dict]]:
     return launches, [entry]
 
 
-def _demo_vaq(argv: list[str]) -> tuple[list[float], int, int]:
-    """demo_vaq on the card, its lines printed under [cli]; returns its
-    avg_recall lines and K1/K2's launches (counters zeroed just before)."""
-    from vaq_tpu_torch.cli import demo_vaq
-    from vaq_tpu_torch.ops import scan_codes
+def _demo(module, argv: list[str]) -> str:
+    """One demo's ``main`` on the card, its lines logged under [cli];
+    returns what it printed."""
     os.environ.pop("VAQ_TPU_PLATFORM", None)
     out = io.StringIO()
-    scan_codes.decode_window_scan.launches = 0
-    scan_codes.decode_rescore.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = demo_vaq.main(argv)
+        rc = module.main(argv)
     dt = time.perf_counter() - t0
-    k1 = scan_codes.decode_window_scan.launches
-    k2 = scan_codes.decode_rescore.launches
     for line in out.getvalue().splitlines():
         log(f"[cli] {line}")
+    log(f"[cli] {module.__name__.rsplit('.', 1)[-1]} {' '.join(argv)}: "
+        f"exit {rc}, {dt:.3f} s")
+    assert rc == 0, rc
+    return out.getvalue()
+
+
+def _demo_vaq(argv: list[str]) -> tuple[list[float], int, int]:
+    """demo_vaq on the card; returns its avg_recall lines and K1/K2's
+    launches (counters zeroed just before)."""
+    from vaq_tpu_torch.cli import demo_vaq
+    from vaq_tpu_torch.ops import scan_codes
+    scan_codes.decode_window_scan.launches = 0
+    scan_codes.decode_rescore.launches = 0
+    out = _demo(demo_vaq, argv)
+    k1 = scan_codes.decode_window_scan.launches
+    k2 = scan_codes.decode_rescore.launches
     recalls = [float(v) for v in
-               re.findall(r"precision\(avg_recall\): ([0-9.]+)", out.getvalue())]
-    log(f"[cli] demo_vaq {' '.join(argv)}: exit {rc}, {dt:.3f} s, K1/K2 "
-        f"launches {k1}/{k2}")
-    assert rc == 0 and len(recalls) == 2, (rc, recalls)
+               re.findall(r"precision\(avg_recall\): ([0-9.]+)", out)]
+    log(f"[cli] demo_vaq: K1/K2 launches {k1}/{k2}")
+    assert len(recalls) == 2, recalls
     assert recalls[0] <= recalls[1] <= 1.0, recalls   # refine 100, 200
     return recalls, k1, k2
 
 
-def phase_cli() -> dict:
+def _cluster_demos(r_main: float) -> None:
+    """demo_cluster (simple, fast, kmeanspp), demo_boltcentroids and
+    demo_vaq_paramsearch at 1M × 128 on the card: each cluster index within
+    1% of its CPU reading, 32 × 16 Bolt centroids of 4 finite numbers,
+    paramsearch's seven rows with METHOD's within 0.005 of ``r_main``."""
+    from vaq_tpu_torch.cli import (demo_boltcentroids, demo_cluster,
+                                   demo_vaq_paramsearch)
+    for version, want in CLUSTER_CPU_INDEX.items():
+        out = _demo(demo_cluster, CLUSTER_ARGS + ["--version", version])
+        ci = float(re.search(r"sqdist\): ([0-9.]+)", out).group(1))
+        sil = float(re.search(r"silhouette: ([0-9.-]+)", out).group(1))
+        log(f"[cli] demo_cluster {version}: cluster index {ci:.6f} (CPU "
+            f"{want:.6f}, {100 * (ci - want) / want:+.3f}%), silhouette "
+            f"{sil:.6f}")
+        assert abs(ci - want) <= 0.01 * want, (version, ci, want)
+        assert -1.0 <= sil <= 1.0, sil
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bolt.csv")
+        _demo(demo_boltcentroids, BOLT_ARGS + ["--save", path])
+        cents = np.loadtxt(path, delimiter=",", ndmin=2)
+        assert cents.shape == (32 * 16, 4) and np.isfinite(cents).all(), \
+            cents.shape
+        path = os.path.join(tmp, "paramsearch.csv")
+        _demo(demo_vaq_paramsearch, PARAMSEARCH_ARGS + ["--out", path])
+        rows = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    assert rows[:, :3].astype(int).tolist() == PARAMSEARCH_ROWS, rows
+    rec = float(rows[PARAMSEARCH_ROWS.index([32, 7, 8]), 3])
+    log(f"[cli] demo_vaq_paramsearch m=32 min=7 max=8: avg_recall {rec:.4f}, "
+        f"[main] decoded {r_main:.4f} ({'equal' if rec == r_main else 'differ'}"
+        f", |Δ| {abs(rec - r_main):.4f})")
+    assert abs(rec - r_main) <= 0.005, (rec, r_main)
+
+
+def phase_cli(r_main: float) -> dict:
     """demo_vaq at 100k rows (the decoded tier serves both refines) and at
-    102,400 (refine 100's search on K1/K2); returns the second's launches."""
+    102,400 (refine 100's search on K1/K2), then the clustering demos;
+    returns the second demo_vaq's launches."""
     recalls, _, _ = _demo_vaq(CLI_ARGS)
     assert all(r >= lo for r, lo in zip(recalls, CLI_MIN_RECALL)), \
         (recalls, CLI_MIN_RECALL)
@@ -2145,6 +2121,7 @@ def phase_cli() -> dict:
     assert all(abs(r - c) <= 0.02 for r, c in zip(recalls,
                                                   CLI_CODES_CPU_RECALL)), \
         (recalls, CLI_CODES_CPU_RECALL)
+    _cluster_demos(r_main)
     return {"cli": {"decode_window_scan": k1, "decode_rescore": k2}}
 
 
@@ -2375,6 +2352,60 @@ def phase_card_vs_cpu() -> None:
     _binary_card_vs_cpu()
 
 
+def _kernel_counts(zero: bool = False) -> dict:
+    """Every kernel's launch counter, by the counter names of the kernels
+    line (K3 and K4 apart); with ``zero``, set them to 0 first."""
+    from vaq_tpu_torch.ops import hamming, probe_scan, rescore, scan_codes
+    fns = {"decode_window_scan": scan_codes.decode_window_scan,
+           "decode_rescore": scan_codes.decode_rescore,
+           "groupmin_window_scan": probe_scan.groupmin_window_scan,
+           "gather_rescore": rescore.gather_rescore,
+           "popcount_dists": hamming.popcount_dists}
+    f4 = scan_codes.fast4_window_scan.launches
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+        f4.update(K3=0, K4=0)
+    return {**{n: fn.launches for n, fn in fns.items()},
+            "fast4_window_scan": f4["K3"], "fast4_window_scan_int8": f4["K4"]}
+
+
+def _counter_of(name: str) -> str:
+    """The launch counter of a kernels-line entry: its kernel's."""
+    if name.startswith("fast4_window_scan"):
+        return "fast4_window_scan" + ("_int8" if "_int8" in name else "")
+    return next(n for n in _kernel_counts() if name.startswith(n))
+
+
+def phase_kcheck(idx, queries, what: str, form: str) -> dict:
+    """``kernel_check.kernel_parity_fields`` on ``idx`` with its first
+    KCHECK_NQ queries: every kernel against its plain version on the card
+    (K1 at 64/32/16-row windows, K2, K3 in ``form``, K4 where the index
+    learned its LUT quantization, K5 at JAX's four shapes, K7 at its three,
+    H1 xor and Jaccard); its fields logged, ``kernel_parity_ok`` required.
+    Returns the launches, counted from 0 around the call."""
+    from vaq_tpu_torch.ops import kernel_check, scan_codes
+    m, c = idx.centroids.shape[:2]
+    assert scan_codes._fast4_form(m, c, False, KCHECK_NQ, 64).kind == form
+    _kernel_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = kernel_check.kernel_parity_fields(idx, queries[:KCHECK_NQ])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _kernel_counts()
+    log(f"[kcheck] {what}: {json.dumps(fields)}")
+    log(f"[kcheck] {what}: {dt:.3f} s, K3 in the {form} form, launches {counts}")
+    assert fields["kernel_parity_ok"] is True, fields
+    want = {"decode_window_scan": 3, "decode_rescore": 1,
+            "groupmin_window_scan": 4, "gather_rescore": 3,
+            "popcount_dists": 4,
+            "fast4_window_scan_int8": int(idx.lut_offsets is not None)}
+    assert {n: counts[n] for n in want} == want, counts
+    assert counts["fast4_window_scan"] >= 1, counts
+    return counts
+
+
 def phase_deep100m() -> tuple[dict, list[dict]]:
     """DEEP-100M through ``scripts/capacity_100m_torch.py``'s ``run()``;
     returns the launches of K1/K2 (counted over the codes tier) and K5/K7
@@ -2524,6 +2555,8 @@ def main() -> int:
     kernels = phase_kernels()
     log(f"[kernels] clocks.sm, clocks.max.sm, power.draw, temperature: {_clocks()}")
     launches, ctx = phase_main_path()
+    r_main = ctx["r_dec"]
+    kcheck = phase_kcheck(ctx["idx"], ctx["queries"], "HEAP", "gather")
     launches.update(phase_ivf_path(ctx))
     by_path = phase_serve(ctx)
     shard = phase_shard(ctx)
@@ -2535,6 +2568,9 @@ def main() -> int:
     ctx["idx"] = None
     torch.cuda.empty_cache()
     launches.update(phase_fast_path(ctx))
+    fast_kcheck = phase_kcheck(ctx.pop("fast_idx"), ctx["queries"], "FAST",
+                               "mma")
+    kcheck = {n: kcheck[n] + fast_kcheck[n] for n in kcheck}
     torch.cuda.empty_cache()
     phase_wide(ctx)
     torch.cuda.empty_cache()
@@ -2543,7 +2579,7 @@ def main() -> int:
     kernels += bin_kernels
     del ctx
     torch.cuda.empty_cache()
-    by_path.update(phase_cli())
+    by_path.update(phase_cli(r_main))
     # every K1 launch of [cli]'s codes run is at 16-row windows
     launches["decode_window_scan_br16"] = by_path["cli"]["decode_window_scan"]
     phase_card_vs_cpu()
@@ -2563,6 +2599,9 @@ def main() -> int:
             kern["launches_by_path"] = {
                 path: counts[kern["name"]] for path, counts in by_path.items()
                 if kern["name"] in counts}
+        # the gate's launches of the entry's kernel, at the gate's shapes
+        kern.setdefault("launches_by_path", {})["kcheck"] = \
+            kcheck[_counter_of(kern["name"])]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

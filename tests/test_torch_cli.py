@@ -1,8 +1,11 @@
 """The port's ``demo_vaq`` CLI (vaq_tpu_torch/cli/demo_vaq.py) against the
 JAX package's (vaq_tpu/cli/demo_vaq.py), both on the CPU
 (``VAQ_TPU_PLATFORM=cpu``), flag for flag on the same synthetic data; then
-``demo_binary`` and ``demo_bitvecengine`` likewise. The binary engine trains
-on the host in both packages, so their printed lines are equal outright.
+``demo_binary`` and ``demo_bitvecengine`` likewise, and ``demo_cluster``,
+``demo_boltcentroids`` and ``demo_vaq_paramsearch``. The binary engine
+trains on the host in both packages, so their printed lines are equal
+outright; the k-means of the clustering demos runs in each package's own
+f32 order, so their numbers agree within a tolerance stated by each case.
 
 Each package trains its own index, so the recall lines agree within 0.05
 (the training tolerance of tests/test_torch_kmeans_wide.py), with the flat
@@ -22,9 +25,13 @@ import vaq_tpu
 from vaq_tpu.cli import demo_binary as jdemo_binary
 from vaq_tpu.cli import demo_bitvecengine as jdemo_bve
 from vaq_tpu.cli import demo_vaq as jdemo
+from vaq_tpu.cli import demo_boltcentroids as jdemo_bolt
+from vaq_tpu.cli import demo_cluster as jdemo_cluster
+from vaq_tpu.cli import demo_vaq_paramsearch as jdemo_search
 from vaq_tpu.cli import serve as jserve
-from vaq_tpu_torch.cli import (demo_binary, demo_bitvecengine, demo_vaq,
-                               platform_device, serve)
+from vaq_tpu_torch.cli import (demo_binary, demo_bitvecengine,
+                               demo_boltcentroids, demo_cluster, demo_vaq,
+                               demo_vaq_paramsearch, platform_device, serve)
 from vaq_tpu_torch.errors import ConfigError, DeviceError
 
 torch.set_num_threads(2)  # six test workers share the host
@@ -202,11 +209,14 @@ def test_demo_bitvecengine_writes_groundtruth(cpu_env, capsys, tmp_path):
 
 
 def test_binary_parsers_take_the_jax_flags():
-    """Every flag JAX's binary demos define (read from their sources) the
-    port's parsers define too."""
+    """Every flag JAX's binary and clustering demos define (read from their
+    sources) the port's parsers define too."""
     import inspect
     for port, jax_mod in ((demo_binary, jdemo_binary),
-                          (demo_bitvecengine, jdemo_bve)):
+                          (demo_bitvecengine, jdemo_bve),
+                          (demo_cluster, jdemo_cluster),
+                          (demo_boltcentroids, jdemo_bolt),
+                          (demo_vaq_paramsearch, jdemo_search)):
         want = sorted(set(re.findall(r'add_argument\("(--[a-z-]+)"',
                                      inspect.getsource(jax_mod))))
         got = sorted(o for a in port.build_parser()._actions
@@ -268,3 +278,144 @@ def test_serve_answers_and_shuts_down(cpu_env, capsys):
         stop.set()
         th.join(60)
     assert not th.is_alive() and rc == [0]
+
+
+# --- demo_cluster, demo_boltcentroids, demo_vaq_paramsearch ----------------
+
+SYNTH = ["--synthetic", "3000", "--timeseries-size", "32"]
+
+
+def numbers_out(out):
+    """The printed lines but the timing ones, numbers replaced by #."""
+    return [re.sub(r"[0-9.]+", "#", s) for s in bare_lines(out)]
+
+
+def reading(out, label):
+    return float(re.search(rf"{label}: ([0-9.-]+)", out).group(1))
+
+
+@pytest.mark.parametrize("version", ["simple", "fast", "kmeanspp"])
+def test_demo_cluster_matches_jax(cpu_env, capsys, tmp_path, version):
+    """The same lines up to their numbers; the cluster index within 1% and
+    the silhouette within 0.02 of JAX's; --centroids-out readable by JAX's
+    reader."""
+    argv = SYNTH + ["--k", "100", "--iters", "25", "--silhouette",
+                    "--version", version]
+    path = str(tmp_path / "c.fvecs")
+    rc_t, _, out_t = run(demo_cluster.main, argv + ["--centroids-out", path],
+                         capsys)
+    rc_j, _, out_j = run(jdemo_cluster.main, argv + ["--centroids-out", path],
+                         capsys)
+    assert rc_t == rc_j == 0
+    assert numbers_out(out_t) == numbers_out(out_j)
+    label = r"cluster index \(mean within-cluster sqdist\)"
+    ci_t, ci_j = reading(out_t, label), reading(out_j, label)
+    assert abs(ci_t - ci_j) <= 0.01 * ci_j, (ci_t, ci_j)
+    assert abs(reading(out_t, "silhouette") -
+               reading(out_j, "silhouette")) <= 0.02
+    from vaq_tpu import io as jio
+    assert jio.read_fvecs(path).shape == (100, 32)
+
+
+def bolt_errors(path, subspaces, d=32):
+    """Per subspace: the mean squared distance of the demo's rows to their
+    nearest of the subspace's 16 centroids in the CSV."""
+    from vaq_tpu_torch.data import make_anisotropic_gaussian
+    x, _ = make_anisotropic_gaussian(3000, d, 1)
+    cents = np.loadtxt(path, delimiter=",", dtype=np.float64)
+    sub = d // subspaces
+    out = []
+    for s in range(subspaces):
+        xs = x[:, s * sub:(s + 1) * sub].astype(np.float64)
+        c = cents[16 * s:16 * (s + 1)]
+        out.append(((xs[:, None] - c[None]) ** 2).sum(2).min(1).mean())
+    return np.array(out), cents.shape
+
+
+def test_demo_boltcentroids_matches_jax(cpu_env, capsys, tmp_path):
+    """JAX's lines, a CSV of JAX's shape (16 lines of sub_len numbers per
+    subspace), each subspace's within-cluster error within 1% of JAX's."""
+    paths = {t: str(tmp_path / f"{t}.csv") for t in ("port", "jax")}
+    argv = SYNTH + ["--subspace", "8"]
+    rc_t, _, out_t = run(demo_boltcentroids.main,
+                         argv + ["--save", paths["port"]], capsys)
+    rc_j, _, out_j = run(jdemo_bolt.main, argv + ["--save", paths["jax"]],
+                         capsys)
+    assert rc_t == rc_j == 0
+    assert numbers_out(out_t.replace(paths["port"], "P")) == \
+        numbers_out(out_j.replace(paths["jax"], "P"))
+    err_t, shape_t = bolt_errors(paths["port"], 8)
+    err_j, shape_j = bolt_errors(paths["jax"], 8)
+    assert shape_t == shape_j == (128, 4)
+    np.testing.assert_allclose(err_t, err_j, rtol=0.01)
+
+
+PARAMSEARCH = SYNTH + ["--queries-size", "20", "--k", "10", "--bit-budget",
+                       "64", "--subspaces", "8,16", "--min-bits", "1,5",
+                       "--max-bits", "8"]
+
+
+def test_demo_vaq_paramsearch_matches_jax(cpu_env, capsys, tmp_path):
+    """The same rows in the same order, the same combinations skipped
+    (m=16 min=5: 16·5 > 64 bits) and none infeasible, recall within 0.05 of
+    JAX's, as demo_vaq's cases allow."""
+    paths = {t: str(tmp_path / f"{t}.csv") for t in ("port", "jax")}
+    rc_t, _, out_t = run(demo_vaq_paramsearch.main,
+                         PARAMSEARCH + ["--out", paths["port"]], capsys)
+    rc_j, _, out_j = run(jdemo_search.main,
+                         PARAMSEARCH + ["--out", paths["jax"]], capsys)
+    assert rc_t == rc_j == 0
+    rows = {t: np.loadtxt(p, delimiter=",", skiprows=1, ndmin=2)
+            for t, p in paths.items()}
+    assert rows["port"][:, :3].tolist() == rows["jax"][:, :3].tolist() == \
+        [[8, 1, 8], [8, 5, 8], [16, 1, 8]]
+    np.testing.assert_allclose(rows["port"][:, 3], rows["jax"][:, 3],
+                               atol=0.05)
+    assert (rows["port"][:, 4:] > 0).all()
+    for out in (out_t, out_j):
+        assert "infeasible" not in out
+    heads = {t: [line.split(":")[0] for line in
+                 out.replace(paths[t], "OUT").splitlines()]
+             for t, out in (("port", out_t), ("jax", out_j))}
+    assert heads["port"] == heads["jax"]
+    with open(paths["port"]) as f:
+        assert f.readline() == open(paths["jax"]).readline()
+
+
+def test_demo_vaq_paramsearch_reports_infeasible_as_jax(cpu_env, capsys,
+                                                        tmp_path, monkeypatch):
+    """A training that raises ValueError prints JAX's "infeasible" line and
+    the grid goes on; a combination outside the budget is skipped silently
+    in both packages."""
+    from vaq_tpu import vaq as jvaq
+    from vaq_tpu_torch import vaq as tvaq
+    for mod in (jvaq, tvaq):
+        train = mod.VAQIndex.train
+
+        def refuse(self, x, *a, _train=train, **kw):
+            if self.config.min_bits == 5:
+                raise ValueError("refused")
+            return _train(self, x, *a, **kw)
+
+        monkeypatch.setattr(mod.VAQIndex, "train", refuse)
+    outs = []
+    for main in (demo_vaq_paramsearch.main, jdemo_search.main):
+        rc, _, out = run(main, PARAMSEARCH + ["--out",
+                                              str(tmp_path / "o.csv")], capsys)
+        assert rc == 0
+        outs.append([s for s in out.splitlines() if "infeasible" in s])
+    assert outs[0] == outs[1] == ["m=8 min=5 max=8: infeasible (refused)"]
+
+
+@pytest.mark.parametrize("demo,extra", [
+    (demo_cluster, []), (demo_boltcentroids, ["--save", "x.csv"]),
+    (demo_vaq_paramsearch, [])])
+def test_clustering_demos_need_the_card_unless_told_cpu(monkeypatch, demo,
+                                                        extra):
+    monkeypatch.setenv("VAQ_TPU_PLATFORM", "tpu")
+    with pytest.raises(ConfigError, match="VAQ_TPU_PLATFORM"):
+        demo.main(SYNTH + extra)
+    if not torch.cuda.is_available():
+        monkeypatch.setenv("VAQ_TPU_PLATFORM", "cuda")
+        with pytest.raises(DeviceError):
+            demo.main(SYNTH + extra)

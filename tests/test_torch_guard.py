@@ -56,6 +56,11 @@ def test_import_loads_neither_jax_nor_vaq_tpu_and_sets_precision():
         "import vaq_tpu_torch.profiling, vaq_tpu_torch.parallel\n"
         "import vaq_tpu_torch.parallel.dist_kmeans\n"
         "import vaq_tpu_torch.parallel.multihost\n"
+        "import vaq_tpu_torch.fpgrowth, vaq_tpu_torch.metrics\n"
+        "import vaq_tpu_torch.ops.kernel_check\n"
+        "import vaq_tpu_torch.cli.demo_cluster\n"
+        "import vaq_tpu_torch.cli.demo_boltcentroids\n"
+        "import vaq_tpu_torch.cli.demo_vaq_paramsearch\n"
         "import runpy\n"
         "runpy.run_path('scripts/capacity_100m_torch.py')\n"
         "print(json.dumps({\n"
@@ -68,7 +73,9 @@ def test_import_loads_neither_jax_nor_vaq_tpu_and_sets_precision():
     assert not [m for m in out["mods"] if _forbidden(m)]
     assert {"vaq_tpu_torch.vaq", "vaq_tpu_torch.binary",
             "vaq_tpu_torch.ops.hamming", "vaq_tpu_torch.serving",
-            "vaq_tpu_torch.parallel.sharded"} <= set(out["mods"])
+            "vaq_tpu_torch.parallel.sharded", "vaq_tpu_torch.fpgrowth",
+            "vaq_tpu_torch.ops.kernel_check",
+            "vaq_tpu_torch.cli.demo_vaq_paramsearch"} <= set(out["mods"])
     assert out["tf32"] is False and out["cudnn_tf32"] is False
     assert out["prec"] == "highest"
 

@@ -200,6 +200,18 @@ def test_params_match_jax(ti_pair, k, nq, visit):
     assert got == jivf.IVFSearcher(jidx.ivf.state, visit).params(k, nq)[:4]
 
 
+@pytest.mark.parametrize("visit", [1e-9, 0.1, 1.0])
+def test_probes_match_jax(ti_pair, d96_pair, visit):
+    """The legacy ``probes(k)`` accessor, ``params(k, 1)``'s p_max, equals
+    JAX's on the converted states, from the k that one cluster holds to k
+    past the visit's own probes."""
+    for jidx, tidx in ((ti_pair[3], ti_pair[4]), (d96_pair[3], d96_pair[4])):
+        port = ivf.IVFSearcher(tidx.ivf.state, visit)
+        jax_ = jivf.IVFSearcher(jidx.ivf.state, visit)
+        for k in (1, 10, 100, 1000):
+            assert port.probes(k) == jax_.probes(k) == port.params(k, 1)[1]
+
+
 def test_converted_state_is_row_major(d96_pair, ti_pair):
     for jidx, tidx in ((d96_pair[3], d96_pair[4]), (ti_pair[3], ti_pair[4])):
         js, ts = jidx.ivf.state, tidx.ivf.state

@@ -15,7 +15,9 @@ test_torch_groupmin.py and test_torch_gather_rescore.py, which hold the
 plain versions against vaq_tpu's Pallas kernels on the CPU. K3 and K4 add
 the same entries in the same order as their plain version (K3 in f32, one
 subspace after another; K4 in int32), so their keys are equal bit for bit.
-Tolerances: K1's
+The tolerance rules live in ``vaq_tpu_torch/ops/kernel_check.py``, the
+package's on-card gate, which holds the kernels to them on a live index;
+the helpers below call them. Tolerances: K1's
 scores keep only 23 − idx_bits mantissa bits, so they agree to 1e-5 plus one
 packed-key step, 2^(idx_bits − 23) relative, and window winners agree
 except where two rows tie within that; K2 sums squares: rtol 1e-5. K5 and
@@ -36,7 +38,10 @@ import vaq_tpu_torch
 from vaq_tpu_torch import ivf
 from vaq_tpu_torch.convert import index_from_numpy
 from vaq_tpu_torch import binary
-from vaq_tpu_torch.ops import hamming, probe_scan, rescore, scan_codes
+from vaq_tpu_torch.ops import (hamming, kernel_check, probe_scan, rescore,
+                               scan_codes)
+from vaq_tpu_torch.ops.kernel_check import (groupmin_term_scale,
+                                            rescore_term_scale)
 
 # (M, C, L, n, block_rows), tests/test_scan_pallas.py:147-148
 GEOMETRIES = [(8, 16, 4, 1024, 16), (32, 256, 4, 4096, 64),
@@ -52,34 +57,14 @@ def make_inputs(geom, seed=31, nq=4):
     return cents, codes, qp
 
 
-def _k1_rtol(block_rows):
-    return 1e-5 + 2.0 ** ((block_rows - 1).bit_length() - 23)
-
-
-def _k1_score64(cents, codes, qp, q_idx, row_ids):
-    """The K1 quantity in f64 for given (query, row) pairs: bf16-rounded
-    decode, bf16 query in the dot, f32 query in ‖q‖²."""
-    table = scan_codes.build_decode_table(cents, "cpu").double().numpy()
-    m, c, l = cents.shape
-    x = table.reshape(c, m, l)[codes[row_ids].astype(np.int64),
-                               np.arange(m)].reshape(len(row_ids), -1)
-    qb = torch.as_tensor(qp).to(torch.bfloat16).double().numpy()[q_idx]
-    qn = (qp.astype(np.float64) ** 2).sum(1)[q_idx]
-    return (x * x).sum(1) - 2 * (x * qb).sum(1) + qn
-
-
 def assert_windows_match(cents, codes, qp, s_a, i_a, s_b, i_b, block_rows):
-    """Two K1 results agree: scores to the packed-key tolerance, and where
-    the winning rows differ, the two rows score the same in f64."""
-    s_a, i_a, s_b, i_b = (np.asarray(t) for t in (s_a, i_a, s_b, i_b))
-    rtol = _k1_rtol(block_rows)
-    np.testing.assert_allclose(s_a, s_b, rtol=rtol, atol=1e-6)
-    q_idx, w_idx = np.nonzero(i_a != i_b)
-    if len(q_idx):  # only ties may pick different rows
-        a = _k1_score64(cents, codes, qp, q_idx, i_a[q_idx, w_idx])
-        b = _k1_score64(cents, codes, qp, q_idx, i_b[q_idx, w_idx])
-        np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-6)
-    assert len(q_idx) <= 0.01 * i_a.size
+    """Two K1 results agree by ``kernel_check.k1_check`` relative to the
+    score: scores to the packed-key tolerance, and where the winning rows
+    differ, the two rows score the same in f64, on at most 1% of windows."""
+    table = scan_codes.build_decode_table(cents, "cpu")
+    ok, detail = kernel_check.k1_check(codes, table, qp, (s_a, i_a),
+                                       (s_b, i_b), block_rows, of_terms=False)
+    assert ok, detail
 
 
 @pytest.fixture
@@ -208,42 +193,9 @@ def make_rescore_inputs(nq, m, gs, d, nblk, dtype, seed=0):
 
 def assert_scores_close(got, ref, scale=None, rtol=1e-5):
     """Same finite pattern, and |got − ref| ≤ rtol·scale, the scale being
-    max(|ref|, 1) unless given."""
-    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
-    assert got.shape == ref.shape
-    scale = (np.maximum(np.abs(ref), 1.0) if scale is None
-             else np.broadcast_to(np.asarray(scale, np.float64), ref.shape))
-    fin = np.isfinite(ref)
-    np.testing.assert_array_equal(np.isfinite(got), fin)
-    np.testing.assert_array_equal(got[~fin], ref[~fin])
-    err = np.abs(got[fin] - ref[fin]) / scale[fin]
-    assert err.size == 0 or err.max() <= rtol, err.max()
-
-
-def groupmin_term_scale(qsl, rows, w, ncl, cap, gs):
-    """Per (cluster, slot, group): Σ_d|qsl_d·x_d| + Σ w·x² + qn at the
-    group's smallest row, in f64 — the size of the terms K5 sums."""
-    qf = torch.as_tensor(qsl).double()
-    r = torch.as_tensor(np.asarray(rows, np.float64)).view(ncl, cap, -1)
-    w = torch.as_tensor(w).double()
-    xn = (r * r * w).sum(2)[:, None, :]
-    qn = 0.25 * (qf * qf).sum(2)[:, :, None]
-    dist = torch.bmm(qf, r.transpose(1, 2)) + xn + qn
-    size = torch.bmm(qf.abs(), r.abs().transpose(1, 2)) + xn + qn
-    at = dist.view(ncl, -1, cap // gs, gs).argmin(3, keepdim=True)
-    return size.view(ncl, -1, cap // gs, gs).gather(3, at)[..., 0].numpy()
-
-
-def rescore_term_scale(q, w, rows, wblk, gs):
-    """Per score: 2·Σ_d|q_d·x_d| + Σ w·x², in f64 — the size of the terms
-    K7 sums."""
-    qb = torch.as_tensor(bf16_values(q)).double()
-    r = torch.as_tensor(np.asarray(rows, np.float64))
-    blk = r.view(-1, gs, r.shape[1])[torch.as_tensor(wblk).long().clamp_min(0)
-                                     .clamp_max(r.shape[0] // gs - 1)]
-    return (2 * torch.einsum("qd,qmgd->qmg", qb.abs(), blk.abs())
-            + torch.einsum("qmgd,d->qmg", blk * blk,
-                           torch.as_tensor(w).double())).numpy()
+    max(|ref|, 1) unless given (``kernel_check.scores_within``)."""
+    ok, detail = kernel_check.scores_within(got, ref, scale, rtol)
+    assert ok, detail
 
 
 # (ncl, cap, qcap, d, gs): the 1M bucket shape (scaled down), ragged slot
@@ -417,28 +369,14 @@ def k3_rounding():
     return scan_codes.k3_accumulation_rounding(torch.device("cuda"))
 
 
-def _k3_sums64(codes, luts, q_idx, rows):
-    """K3's sum in f64 for given (query, row) pairs, over bf16 entries."""
-    lut_bf = luts.to(torch.bfloat16).double()
-    m = codes.shape[1]
-    sub = torch.arange(m, device=codes.device)
-    return lut_bf[q_idx[:, None], sub[None, :], codes[rows.long()].long()].sum(1)
-
-
 def assert_k3_matches(codes, luts, br, got, want):
     """K3 against its plain version where the tensor cores do not add to
-    nearest: scores within 1e-5 + 2^(idx_bits − 23) relative (the rule the
-    port holds K3 to against JAX), and winners that differ only where the
-    two rows' sums agree to that in f64."""
-    (s_k, i_k), (s_r, i_r) = got, want
-    rtol = 1e-5 + 2.0 ** ((br - 1).bit_length() - 23)
-    torch.testing.assert_close(s_k, s_r, rtol=rtol, atol=1e-6)
-    q_idx, w_idx = torch.nonzero(i_k != i_r, as_tuple=True)
-    if len(q_idx):
-        a = _k3_sums64(codes, luts, q_idx, i_k[q_idx, w_idx])
-        b = _k3_sums64(codes, luts, q_idx, i_r[q_idx, w_idx])
-        torch.testing.assert_close(a, b, rtol=rtol, atol=1e-6)
-    assert len(q_idx) <= 0.02 * i_k.numel()
+    nearest, by ``kernel_check.k3_check``: scores within 1e-5 +
+    2^(idx_bits − 23) relative (the rule the port holds K3 to against JAX),
+    and winners that differ only where the two rows' sums agree to that in
+    f64, on at most 2% of windows."""
+    ok, detail = kernel_check.k3_check(codes, luts, br, got, want)
+    assert ok, detail
 
 
 @pytest.mark.gpu
@@ -683,3 +621,36 @@ def test_binary_searches_card_equal_cpu(cuda):
                 binary.query_hamming_clusters(cpu, st_cpu, queries, 30,
                                               n_probe)):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,quantize", [
+    ("VAQ64m8min8max8var1,HEAP", False),     # K3's gather form (C = 256)
+    ("VAQ64m16min4max4var1,FAST", True)])    # tensor-core form, K4 too
+def test_kernel_parity_fields_on_a_card_index(cuda, method, quantize):
+    """The package's gate on a small card index: every kernel holds, and
+    each check launched its kernel (K1 at 64/32/16-row windows, K2, K3, K4
+    where the LUT quantization is learned, K5 at four shapes, K7 at three,
+    H1 xor and Jaccard at two)."""
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((9000, 32)) *
+         np.linspace(2.0, 0.3, 32)[None, :]).astype(np.float32)
+    idx = vaq_tpu_torch.VAQIndex(vaq_tpu_torch.parse_method_string(method),
+                                 device=cuda).train(x).encode(x)
+    if quantize:
+        idx.learn_quantization(x, 0.1)
+    counters = (scan_codes.decode_window_scan, scan_codes.decode_rescore,
+                probe_scan.groupmin_window_scan, rescore.gather_rescore,
+                hamming.popcount_dists)
+    before = [f.launches for f in counters]
+    fast4 = dict(scan_codes.fast4_window_scan.launches)
+    got = kernel_check.kernel_parity_fields(idx, x[:128] + 0.05)
+    assert got["kernel_parity_ok"] is True, got
+    assert got["kernel_parity_checked"] == [
+        "decode_br64", "decode_br32", "decode_br16", "decode_rescore",
+        "fast4"] + ["fast4_int8"] * quantize + ["groupmin", "rescore",
+                                                "popcount"]
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 1, 4, 3, 4]
+    k3 = scan_codes.fast4_window_scan.launches["K3"] - fast4["K3"]
+    k4 = scan_codes.fast4_window_scan.launches["K4"] - fast4["K4"]
+    assert k3 >= 1 and k4 == int(quantize)

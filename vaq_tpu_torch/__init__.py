@@ -6,7 +6,7 @@ each counterpart is easy to find; ``vaq_tpu`` stays the reference the port is
 tested against. This package imports ``torch`` and never ``jax`` or
 ``vaq_tpu``.
 
-Ported so far: ``VAQIndex.train`` (PCA, bit allocation, batched k-means),
+Ported: ``VAQIndex.train`` (PCA, bit allocation, batched k-means),
 ``encode``, ``search`` on the decoded bf16 tier, the int8 tier
 (``"decoded8"``), the codes-resident tier (CUDA kernels K1/K2,
 ``ops/scan_codes.py``) and the TI/IVF cluster probe (``attach_ivf``, then
@@ -14,9 +14,11 @@ Ported so far: ``VAQIndex.train`` (PCA, bit allocation, batched k-means),
 ``ops/rescore.py``), the FAST/LUT family, ``refine``, the mutations
 (``add``, ``delete``, ``get_codes``, ``reconstruct``), the >8-bit
 codebooks, the reference-format artifacts and dataset I/O (``io``,
-``native``) and the ``demo_vaq`` CLI (``cli``). Entry points run on
-``"cuda"`` unless given ``device="cpu"``; without a card they raise
-``DeviceError``.
+``native``) and the ``demo_vaq`` CLI (``cli``), and every other module
+of ``vaq_tpu``: the BitVecEngine (``binary``), serving, the sharded search
+(``parallel``), ``fpgrowth``, the clustering demos and the on-card kernel
+gate (``ops/kernel_check``). Entry points run on ``"cuda"`` unless given
+``device="cpu"``; without a card they raise ``DeviceError``.
 """
 
 import torch as _torch

@@ -625,6 +625,11 @@ class IVFSearcher:
         qcap = nq if nq <= 256 else probe_ops.pick_qcap(nq, p_max, ncl)
         return p_visit, p_max, qcap, pick_gs(st.cap)
 
+    def probes(self, k: int) -> int:
+        """Static probe count, ``params(k, 1)``'s p_max (JAX's legacy
+        accessor, vaq_tpu/ivf.py:812-814)."""
+        return self.params(k, 1)[1]
+
     def search(self, index, qp: torch.Tensor, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One batch of projected queries on the state's device. The exact
