@@ -5,7 +5,7 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``, one
-``nvcc`` per source, all at once) and runs fifteen phases, printing progress
+``nvcc`` per source, all at once) and runs sixteen phases, printing progress
 as it goes:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc
@@ -19,17 +19,21 @@ as it goes:
    is one: K1 at n = 1M codes and 512 queries, at M = 32, C = 256, d = 128
    with 128-row and with 64-row windows, at one 250,000-row shard's
    32-row windows ([shard] at S = 4), at 102,400 rows in 16-row windows
-   ([cli]'s codes run) and at the FAST "auto" shape
-   (M = 64, C = 16, L = 2), with its TFLOP/s and share of the bound; the
+   ([cli]'s codes run), at the FAST "auto" shape
+   (M = 64, C = 16, L = 2), and with 1024 queries in 512-row windows at
+   M = 32, C = 256 and at M = 64, C = 16 ([bench]'s codes tier on its HEAP
+   and FAST indexes), with its TFLOP/s and share of the bound; the
    tie-exact top-k helper and its forms beside ``torch.topk`` on K1's
    window scores at the port's selection widths; the decoded tier's
    selection of one batch (16 blocks of 512 × 65,536, kk = 200) as
    ``lowest_over_blocks``, tie-exact, and as the parent's running merge; K2 at the same codes, the rescore at 512 × 200 candidates; K5
    over the 1M probe buckets (1000 clusters of 1536 rows, 112 query slots,
    gs = 8) with int8 rows, at d = 96 (the shape of JAX's transposed K6),
-   with bf16 rows, with about 51 of the 112 slots occupied (visit 0.1) and
-   at qcap = 512 (visit 1.0); K7 at 512 queries × 200 windows of 8 rows, int8 and bf16, d = 128
-   and 96 (K8); K5 and K7 at the 100M probe's shapes (32 buckets of
+   with bf16 rows, with about 51 of the 112 slots occupied (visit 0.1), at
+   qcap = 512 (visit 1.0) and at [bench]'s qcap = 216 (1024 queries at
+   visit 0.1), all occupied and about 102 occupied; K7 at 512 queries × 200
+   windows of 8 rows, int8 and bf16, d = 128 and 96 (K8), and at [bench]'s
+   1024 queries × 20 windows of 8 rows; K5 and K7 at the 100M probe's shapes (32 buckets of
    102,400 int8 rows at d = 96, gs = 256: K5 with 520 slots filled around
    256, K7 with 1024 queries × 20 windows, beside a bf16 ``bmm`` of the
    windows gathered beforehand); K3 (f32 LUT) and K4 (s8 LUT) at the FAST path's shape
@@ -74,9 +78,10 @@ as it goes:
    client threads send 8000 single-row requests from the 1000 queries, then
    1000 requests of 16-row groups, with QPS, p50/p95/p99, mean batch fill,
    fetch seconds, batches and K1/K2's launches (zeroed before each load,
-   each > 0); then ``bench.py``'s open-loop sweep of offered rates (8
-   submitters of single rows, 4096 requests a rate, doubling from 2000 a
-   second until the server falls below 97% of it, one midpoint between),
+   each > 0); then ``bench.py``'s open-loop sweep of offered rates
+   (``bench_torch.sweep_offered_rates``; 8 submitters of single rows, 4096
+   requests a rate, doubling from 2000 a second until the server falls
+   below 97% of it, midpoints between),
    its knee and p50/p95 at 80% of the knee; every answer held to
    ``search_device`` of the same rows in 512-query batches (ids up to near
    ties within fault 1's tolerance); the same with ``backend="decoded"``; a ``SearchHTTPServer`` answering
@@ -158,7 +163,20 @@ as it goes:
    quantizers and through ``"lut_gather"``, and a ``BinaryIndex(256)``
    state through packed, matmul, Jaccard, both filters and the cluster
    probe); the answers must agree, the binary ones identically;
-14. ``[deep100m]``: ``scripts/capacity_100m_torch.py``'s ``run()`` at the
+14. ``[bench]``: ``python3 bench_torch.py --second-n 0 --no-oracle`` as a
+   subprocess, ``bench.py``'s sections on the port at 1M × 128 (recall and
+   refine, the headline five times, the kernel gate, the int8 and Hamming
+   tiers, the codes tier on the HEAP and FAST indexes, the IVF probe at
+   1000 clusters, the server's offered-load sweep on the decoded and codes
+   tiers): its one stdout line within 1900 characters, no ``_error``
+   field, ``kernel_parity_ok`` true, every QPS above 0, refine no worse
+   than ADC; its sidecar's launches show the gate's counts and K1/K2 in the
+   codes sections, K5/K7 in the IVF section, and join the kernels line's
+   ``launches_by_path`` as ``"bench"``; its sidecar's kernel shapes must be
+   those phase 3 holds for it (K1 at 1024 queries in 512-row windows on
+   both indexes, K5 at qcap = 216, K7 at 1024 × 20 windows of 8 rows), and
+   the launches at those shapes are those entries' ``launches``;
+15. ``[deep100m]``: ``scripts/capacity_100m_torch.py``'s ``run()`` at the
    full DEEP-100M size, 100M × 96, ``VAQ256m32min5max8var1``, 1024 queries,
    k = 10: rows generated on the card, train, streamed encode, exact
    groundtruth@100, the codes tier (K1/K2's counters zeroed before, read
@@ -205,6 +223,12 @@ METHOD = "VAQ256m32min7max8var1,HEAP"
 # Kernel check at the main path's shapes.
 KC_N, KC_M, KC_C, KC_L, KC_NQ, KC_BR, KC_KK = 1_000_000, 32, 256, 4, 512, 128, 200
 RTOL_KERNEL = 1e-5   # f32 sums in another order: last-bit differences
+# [bench]'s shapes (bench_torch.py's defaults: 1M × 128, one batch of 1024
+# queries, k = 10): the codes tier's windows of 1M // (64·10) rows, capped
+# at 512; the probe at visit 0.1 gives pick_qcap(1024, 100, 1000) = 216
+# query slots a cluster, about 102 of them occupied (1024 · 100 / 1000),
+# and K7 m = max(2k, 16) = 20 windows of gs = 8 rows a query
+BENCH_NQ, BENCH_BR, BENCH_QCAP, BENCH_SLOTS, BENCH_WIN = 1024, 512, 216, 102, 20
 # K1 at the codes path's shape, at the FAST "auto" shape (M = 64, C = 16,
 # L = 2) and at 64-row windows (the codes tier at k = 200), each as
 # (n, M, C, L, nq, block_rows). Its scores keep only the high 23 − idx_bits
@@ -216,7 +240,9 @@ K1_SHAPES = ((KC_N, KC_M, KC_C, KC_L, KC_NQ, KC_BR),
              (KC_N, KC_M, KC_C, KC_L, KC_NQ, 64),
              (KC_N, 57, KC_C, 1, KC_NQ, KC_BR),
              (KC_N // 4, KC_M, KC_C, KC_L, KC_NQ, 32),
-             (102_400, KC_M, KC_C, KC_L, KC_NQ, 16))
+             (102_400, KC_M, KC_C, KC_L, KC_NQ, 16),
+             (KC_N, KC_M, KC_C, KC_L, BENCH_NQ, BENCH_BR),
+             (KC_N, 64, 16, 2, BENCH_NQ, BENCH_BR))
 # The fourth K1 shape is [binary]'s ScalarLUTIndex(256) codes tier: M' = 57
 # kept dimensions of one subspace each (L = 1), C = 256, 128-row windows; a
 # 57-byte codes row is no multiple of 4 or 16 bytes and the depth pads to 64.
@@ -225,6 +251,8 @@ K1_SHAPES = ((KC_N, KC_M, KC_C, KC_L, KC_NQ, KC_BR),
 # The sixth is [cli]'s codes run: demo_vaq at 102,400 rows, whose refine
 # 100 searches the codes tier in 16-row windows (refine 200's, at 8 rows,
 # the decoded tier), so every K1 launch of that run is at this shape.
+# The last two are [bench]'s codes tier on the HEAP index and on the FAST
+# index (its fast4_qps): 1024 queries in 512-row windows.
 LUT_M = K1_SHAPES[3][1]
 # (width, k) of the port's selections at 1M rows, 512 queries: the rescored
 # top-k of 2k candidates (codes, decoded, FAST, IVF second stage), the IVF
@@ -266,10 +294,10 @@ SERVE_CLI_ARGS = ["--synthetic", "102400", "--backend", "codes", "--k", "10",
                   "--port", "0"]
 SERVE_CLI_LIMIT_S = 120
 # The open-loop sweep of bench.py's serving_knee_fields: 8 submitters, 4096
-# single-row requests a rate, from 2000 a second doubling while the server
-# keeps up (achieved ≥ 97% of offered), one midpoint probe past the knee,
-# then 80% of the knee; the cap is 4× bench.py's 32,000
-SWEEP_SUBMITTERS, SWEEP_REQUESTS, SWEEP_START, SWEEP_CAP = 8, 4096, 2000.0, 128_000.0
+# single-row requests a rate, offered by bench_torch.sweep_offered_rates
+# (from 2000 a second doubling while the server keeps up, midpoint probes
+# past the knee), then 80% of the knee; the cap is 4× bench.py's 32,000
+SWEEP_SUBMITTERS, SWEEP_REQUESTS, SWEEP_CAP = 8, 4096, 128_000.0
 # [shard]: the 1M index over S shards of the one card; at S = 4 the codes
 # tier's per-shard windows are 250,000 // 6,400 → 32 rows; the probe at
 # visit 0.1; the distributed Lloyd on the first 200k rows, 256 clusters
@@ -345,6 +373,19 @@ BIN_STREAM_ROWS = 262_144
 # largest of 1000 holds about 2200; [binary] checks its own block too)
 # against the 208 query slots pick_qcap(1000, 100, 1000) gives.
 KH_W, KH_PROBE = 8, (10, 208, 4000)
+# [bench]: bench_torch.py as a user runs it, at its 1M defaults without the
+# engine-vs-oracle slice (host numpy, ~20 minutes at 100k rows) and the 10M
+# section; the kernel gate's launches of one call, which its
+# kernel_parity section must show
+BENCH_ARGS = ["--second-n", "0", "--no-oracle"]
+BENCH_LIMIT_S = 420
+# the QPS fields every such run prints; the serving knees print only where
+# the sweep's first rate, 2000/s, was kept up with (bench.py's rule)
+BENCH_QPS = ("decoded8_qps", "hamming_qps", "codes_qps", "fast4_qps",
+             "ivf_qps")
+BENCH_GATE_LAUNCHES = {"decode_window_scan": 3, "decode_rescore": 1,
+                       "groupmin_window_scan": 4, "gather_rescore": 3,
+                       "popcount_dists": 4}
 # Published H100 SXM peaks (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -552,11 +593,11 @@ def _held_groupmin(args, name: str, what: str, tag: str = "kernels",
 
 def _check_rescore(gen, d: int, dtype: str, nq: int = KC_NQ,
                    win: int = KC_WIN, gs: int = KC_GS, ncl: int = KC_NCL,
-                   cap: int = KC_CAP) -> dict:
+                   cap: int = KC_CAP, suffix: str = "") -> dict:
     """K7 on ``nq`` queries × ``win`` windows of ``gs`` rows drawn from
     ``ncl`` probe buckets of ``cap`` seeded rows (512 × 200 windows of 8
     rows from the 1M buckets by default), held against its plain version by
-    :func:`_held_rescore`."""
+    :func:`_held_rescore`; ``suffix`` ends the entry's name."""
     dev = torch.device(DEVICE)
     rows, w = _probe_rows(gen, d, dtype, ncl, cap)
     q = torch.randn((nq, d), generator=gen, device=dev)
@@ -564,9 +605,10 @@ def _check_rescore(gen, d: int, dtype: str, nq: int = KC_NQ,
                          device=dev, dtype=torch.int32)
     name = ("gather_rescore" + (f"_d{d}" if d % 128 else "")
             + ("" if gs == KC_GS else f"_gs{gs}")
-            + ("" if dtype == "int8" else "_bf16"))
+            + ("" if dtype == "int8" else "_bf16") + suffix)
     return _held_rescore((q, w, rows, wblk, gs), name,
-                         f"d={d} {dtype} rows, {win} windows of {gs}")
+                         f"d={d} {dtype} rows, {nq} queries × {win} windows "
+                         f"of {gs}")
 
 
 def _held_rescore(args, name: str, what: str, tag: str = "kernels") -> dict:
@@ -692,10 +734,16 @@ def _check_k1(rng, shape) -> tuple[dict, torch.Tensor]:
     qp = torch.as_tensor(rng.standard_normal((nq, m * l)).astype(np.float32),
                          device=dev)
     table = scan_codes.build_decode_table(cents, dev)
-    name = "decode_window_scan" + (f"_c{c}" if c != KC_C else
-                                   f"_m{m}" if m != KC_M else "") + \
-        ("" if br == KC_BR else f"_br{br}")
-    return _held_k1(codes, table, qp, br, name)[:2]
+    return _held_k1(codes, table, qp, br, _k1_name(shape))[:2]
+
+
+def _k1_name(shape) -> str:
+    """The kernels-line name of K1's check at ``shape``."""
+    _, m, c, _, nq, br = shape
+    return ("decode_window_scan" + (f"_c{c}" if c != KC_C else
+                                    f"_m{m}" if m != KC_M else "")
+            + ("" if br == KC_BR else f"_br{br}")
+            + ("" if nq == KC_NQ else f"_q{nq}"))
 
 
 def _held_k1(codes, table, qp, br: int, name: str, tag: str = "kernels",
@@ -955,14 +1003,19 @@ def phase_kernels() -> list[dict]:
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
         kernels.append(_check_groupmin(gen, d_k, dtype))
         torch.cuda.empty_cache()
-    # partly filled slots, as the dispatch leaves them at visit 0.1, and the
-    # qcap of visit 1.0 (pick_qcap gives nq = 512 there)
-    for qcap, mean in ((KC_QCAP, KC_SLOTS_MEAN), (KC_QCAP_FULL, None)):
+    # partly filled slots, as the dispatch leaves them at visit 0.1, the
+    # qcap of visit 1.0 (pick_qcap gives nq = 512 there), and [bench]'s
+    # 1024-query batch at visit 0.1, all slots occupied and as dispatched
+    for qcap, mean in ((KC_QCAP, KC_SLOTS_MEAN), (KC_QCAP_FULL, None),
+                       (BENCH_QCAP, None), (BENCH_QCAP, BENCH_SLOTS)):
         kernels.append(_check_groupmin(gen, D_MAIN, "int8", qcap, mean))
         torch.cuda.empty_cache()
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
         kernels.append(_check_rescore(gen, d_k, dtype))
         torch.cuda.empty_cache()
+    kernels.append(_check_rescore(gen, D_MAIN, "int8", BENCH_NQ, BENCH_WIN,
+                                  suffix=f"_q{BENCH_NQ}_w{BENCH_WIN}"))
+    torch.cuda.empty_cache()
     # the 100M probe's shapes ([deep100m]): 102,400-row buckets, gs = 256
     kernels.append(_check_groupmin(gen, DEEP_D, "int8", KD_QCAP, KD_SLOTS,
                                    KD_NCL, KD_CAP, KD_GS))
@@ -1278,24 +1331,15 @@ def _open_loop(srv, queries, rate: float, ref, rtol: float, what: str
 
 
 def _knee_sweep(srv, queries, ref, rtol: float, what: str) -> None:
-    """``bench.py``'s offered-load sweep on a warm server: double the
-    offered rate from ``SWEEP_START`` while the server keeps up (achieved ≥
-    97% of offered), probe once midway past the knee, then report p50/p95 at
-    80% of the knee."""
-    rates, knee = [SWEEP_START], None
-    while rates:
-        rate = rates.pop(0)
-        ach, p50, p95 = _open_loop(srv, queries, rate, ref, rtol, what)
-        kept = ach >= 0.97 * rate
-        log(f"[serve] {what}, open loop: offered {rate:.0f}/s, achieved "
-            f"{ach:.1f}/s, p50 {p50:.3f} / p95 {p95:.3f} ms "
-            f"({'kept up' if kept else 'saturated'})")
-        if kept:
-            knee = rate
-            if rate < SWEEP_CAP:
-                rates = [min(2 * rate, SWEEP_CAP)]
-        elif knee is not None and rate > 1.26 * knee:
-            rates = [round((knee + rate) / 2, -2)]
+    """``bench_torch.sweep_offered_rates`` (``bench.py``'s offered-load
+    rule) on a warm server, up to ``SWEEP_CAP``, every answer held to the
+    reference's; then p50/p95 at 80% of the knee."""
+    from bench_torch import sweep_offered_rates
+
+    knee, points = sweep_offered_rates(
+        lambda rate: _open_loop(srv, queries, rate, ref, rtol, what),
+        SWEEP_CAP)
+    log(f"[serve] {what}, open loop: {json.dumps(points)}")
     assert knee is not None, f"{what}: no offered rate was kept up"
     ach, p50, p95 = _open_loop(srv, queries, round(0.8 * knee, -2), ref,
                                rtol, what)
@@ -2406,6 +2450,80 @@ def phase_kcheck(idx, queries, what: str, form: str) -> dict:
     return counts
 
 
+def phase_bench() -> tuple[dict, dict]:
+    """``python3 bench_torch.py`` with BENCH_ARGS as a subprocess: its one
+    stdout line must parse within 1900 characters with no ``_error`` field,
+    ``kernel_parity_ok`` true, every QPS above 0 and refine no worse than
+    ADC recall; its sidecar must show the gate's launches in
+    ``kernel_parity``, K1/K2 in ``capacity`` and ``serving_codes`` and K5/K7
+    in ``ivf``, and its codes and IVF steps at the shapes phase 3 holds
+    (K1_SHAPES' last two, K5 at BENCH_QCAP, K7 at BENCH_NQ × BENCH_WIN).
+    Returns the run's launches by kernel, and those steps' launches by the
+    name of phase 3's entry at their shape."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sidecar = os.path.join(root, ".bench_cache", "torch", "last_full.json")
+    if os.path.exists(sidecar):
+        os.remove(sidecar)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "bench_torch.py", *BENCH_ARGS],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=BENCH_LIMIT_S)
+    dt = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"[bench] {line}")
+    assert proc.returncode == 0, f"bench_torch.py exited {proc.returncode}"
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1 and len(lines[0]) <= 1900, lines
+    log(f"[bench] line: {lines[0]}")
+    line = json.loads(lines[0])
+    assert not [k for k in line if k.endswith("_error")], line
+    assert line["kernel_parity_ok"] is True, line
+    qps = {k: v for k, v in line.items() if k.endswith("_qps")}
+    assert set(BENCH_QPS) <= set(qps) and min(qps.values()) > 0 and \
+        line["value"] > 0, qps
+    assert line["recall_at_10_refined"] >= line["recall_at_10"], line
+    with open(sidecar) as f:
+        full = json.load(f)
+    # a sweep without a knee (the first 2000/s not kept up with) has no knee
+    # field; the sweep itself must be there
+    assert "serving_sweep" in full and "codes_serving_sweep" in full
+    by_section = full["launches_by_section"]
+    log(f"[bench] {' '.join(BENCH_ARGS)}: exit 0 in {dt:.1f} s; sections "
+        f"(s): {json.dumps(full['section_s'])}")
+    log(f"[bench] launches by section: {json.dumps(by_section)}")
+    gate = by_section["kernel_parity"]
+    assert {n: gate.get(n, 0) for n in BENCH_GATE_LAUNCHES} == \
+        BENCH_GATE_LAUNCHES and gate.get("fast4_window_scan", 0) >= 1, gate
+    for section, kernels in (("capacity", ("decode_window_scan",
+                                           "decode_rescore")),
+                             ("serving_codes", ("decode_window_scan",
+                                                "decode_rescore")),
+                             ("ivf", ("groupmin_window_scan",
+                                      "gather_rescore"))):
+        assert all(by_section[section].get(n, 0) > 0 for n in kernels), \
+            (section, by_section[section])
+    shapes = full["kernel_shapes"]
+    log(f"[bench] kernel shapes: {json.dumps(shapes)}")
+    at_shape = {}
+    for step, shape in (("codes", K1_SHAPES[6]), ("fast4", K1_SHAPES[7])):
+        got = shapes[step]
+        assert tuple(got[k] for k in ("n", "M", "C", "L", "nq", "block_rows")
+                     ) == shape, (step, got)
+        at_shape[_k1_name(shape)] = got["launches"].get("decode_window_scan", 0)
+    (visit,) = shapes["ivf"]["visits"]
+    assert (visit["ncl"], visit["cap"], visit["d"], visit["rows_dtype"],
+            visit["nq"], visit["qcap"], visit["gs"], visit["windows"]) == \
+        (KC_NCL, KC_CAP, D_MAIN, "torch.int8", BENCH_NQ, BENCH_QCAP, KC_GS,
+         BENCH_WIN), visit
+    ivf = shapes["ivf"]["launches"]
+    at_shape[f"groupmin_window_scan_q{BENCH_QCAP}"] = \
+        ivf.get("groupmin_window_scan", 0)
+    at_shape[f"gather_rescore_q{BENCH_NQ}_w{BENCH_WIN}"] = \
+        ivf.get("gather_rescore", 0)
+    assert min(at_shape.values()) > 0, at_shape
+    return full["launches"], at_shape
+
+
 def phase_deep100m() -> tuple[dict, list[dict]]:
     """DEEP-100M through ``scripts/capacity_100m_torch.py``'s ``run()``;
     returns the launches of K1/K2 (counted over the codes tier) and K5/K7
@@ -2584,6 +2702,10 @@ def main() -> int:
     launches["decode_window_scan_br16"] = by_path["cli"]["decode_window_scan"]
     phase_card_vs_cpu()
     torch.cuda.empty_cache()
+    bench, bench_at_shape = phase_bench()
+    # the launches of [bench]'s codes and IVF steps, at the shapes of phase
+    # 3's entries of those names
+    launches.update(bench_at_shape)
     deep_launches, deep_kernels = phase_deep100m()
     launches.update(deep_launches)
     kernels += deep_kernels
@@ -2602,6 +2724,9 @@ def main() -> int:
         # the gate's launches of the entry's kernel, at the gate's shapes
         kern.setdefault("launches_by_path", {})["kcheck"] = \
             kcheck[_counter_of(kern["name"])]
+        # bench_torch.py's, over its whole run (its own gate call included)
+        kern["launches_by_path"]["bench"] = \
+            bench.get(_counter_of(kern["name"]), 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Guards of the PyTorch port: it never imports jax or vaq_tpu, it sets the
-full-f32 precision policy at import, and chip_smoke.py refuses to run (and
-prints no result) without a CUDA card."""
+"""Guards of the PyTorch port: it never imports jax or vaq_tpu (nor, for
+bench_torch.py, JAX's bench.py), it sets the full-f32 precision policy at
+import, and chip_smoke.py refuses to run (and prints no result) without a
+CUDA card."""
 
 import ast
 import json
@@ -18,7 +19,7 @@ PORT = ROOT / "vaq_tpu_torch"
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "vaq_tpu")
+    return top in ("jax", "jaxlib", "vaq_tpu", "bench")
 
 
 def _imports(path: Path):
@@ -37,7 +38,8 @@ def _python(code: str, cwd: Path = ROOT, env_extra=None):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "capacity_100m_torch.py"],
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "capacity_100m_torch.py",
+    ROOT / "bench_torch.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_vaq_tpu_import_in_source(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
@@ -63,6 +65,7 @@ def test_import_loads_neither_jax_nor_vaq_tpu_and_sets_precision():
         "import vaq_tpu_torch.cli.demo_vaq_paramsearch\n"
         "import runpy\n"
         "runpy.run_path('scripts/capacity_100m_torch.py')\n"
+        "runpy.run_path('bench_torch.py')\n"
         "print(json.dumps({\n"
         "  'mods': sorted(m for m in sys.modules),\n"
         "  'tf32': torch.backends.cuda.matmul.allow_tf32,\n"

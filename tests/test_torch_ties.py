@@ -98,6 +98,21 @@ def test_select_lowest_issue_example():
     assert scan_codes._select_lowest(x, 3)[1].tolist() == [[1, 2, 4]]
 
 
+@pytest.mark.parametrize("form", ["sort", "topk"])
+def test_select_lowest_keeps_only_its_k_columns(form):
+    """The positions own a (rows, k) storage and are no view of the whole
+    sort: ``ivf.build_ivf`` keeps each 65,536-row block's 8 nearest of
+    1000 clusters, and views of the blocks' sorts held 76 GB at 10M rows."""
+    lowest = {"sort": scan_codes._lowest_sorted,
+              "topk": scan_codes._lowest_keyed}[form]
+    x = torch.rand(64, 1000, generator=torch.Generator().manual_seed(0))
+    pos = lowest(scan_codes._ordered(x), 8)
+    assert pos.untyped_storage().nbytes() == 64 * 8 * 8
+    vals, pos = scan_codes._select_lowest(x, 8)
+    assert pos.untyped_storage().nbytes() == 64 * 8 * 8
+    assert vals.untyped_storage().nbytes() == 64 * 8 * 4
+
+
 # (M, C, L, n, nq, block_rows, k) for the codes tier
 CODES_TIES = [(4, 16, 2, 1024, 5, 16, 10), (8, 16, 4, 2048, 3, 64, 6)]
 

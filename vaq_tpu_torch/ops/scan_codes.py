@@ -387,8 +387,9 @@ def _ordered(scores: torch.Tensor) -> torch.Tensor:
 
 def _lowest_sorted(bits: torch.Tensor, k: int) -> torch.Tensor:
     """Positions of the k lowest, ties to the lower position: the first k
-    of a stable sort of the whole row."""
-    return torch.sort(bits, dim=1, stable=True).indices[:, :k]
+    of a stable sort of the whole row, copied out of it, so that a caller
+    who keeps them does not keep the whole (rows, width) sort alive."""
+    return torch.sort(bits, dim=1, stable=True).indices[:, :k].contiguous()
 
 
 def _lowest_keyed(bits: torch.Tensor, k: int) -> torch.Tensor:
