@@ -158,6 +158,26 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
+def bench_data(cache_dir: str, n: int, d: int, queries: int,
+               use_cache: bool = True):
+    """(base, queries): ``make_anisotropic_gaussian(n, d, queries,
+    seed=42)``, read from ``cache_dir``'s npz of that size where it exists
+    (and ``use_cache``), else made and written there."""
+    from vaq_tpu_torch.data import make_anisotropic_gaussian
+    t0 = time.perf_counter()
+    path = os.path.join(cache_dir, f"data_n{n}_d{d}_q{queries}.npz")
+    if os.path.exists(path) and use_cache:
+        with np.load(path) as z:
+            base, qs = z["base"], z["queries"]
+        log(f"data loaded from cache: {time.perf_counter() - t0:.1f}s")
+        return base, qs
+    base, qs = make_anisotropic_gaussian(n, d, queries, seed=42)
+    os.makedirs(cache_dir, exist_ok=True)
+    np.savez(path, base=base, queries=qs)
+    log(f"data gen: {time.perf_counter() - t0:.1f}s")
+    return base, qs
+
+
 # ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
@@ -653,7 +673,6 @@ def main(argv=None) -> int:
     args = parser().parse_args(argv)
     dev = resolve(args.device)
 
-    from vaq_tpu_torch.data import make_anisotropic_gaussian
     from vaq_tpu_torch.ops.distances import (exact_search,
                                              exact_search_host_stream)
 
@@ -673,21 +692,6 @@ def main(argv=None) -> int:
     src_tag = f"{dev.type}_{source_hash()}"
     rng_tag = f"n{args.n}_d{args.d}_{args.config.replace(',', '_')}"
     cfg = vaq_tpu_torch.parse_method_string(args.config)
-
-    def data():
-        t0 = time.perf_counter()
-        data_cache = os.path.join(cache_dir, f"data_n{args.n}_d{args.d}"
-                                             f"_q{args.queries}.npz")
-        if os.path.exists(data_cache) and not args.no_cache:
-            with np.load(data_cache) as z:
-                base, queries = z["base"], z["queries"]
-            log(f"data loaded from cache: {time.perf_counter() - t0:.1f}s")
-            return base, queries
-        base, queries = make_anisotropic_gaussian(
-            args.n, args.d, args.queries, seed=42)
-        np.savez(data_cache, base=base, queries=queries)
-        log(f"data gen: {time.perf_counter() - t0:.1f}s")
-        return base, queries
 
     def build():
         cache = os.path.join(cache_dir, f"{rng_tag}_{src_tag}.npz")
@@ -730,7 +734,8 @@ def main(argv=None) -> int:
         _build.library()
         rec.section_s["kernel_build"] = round(time.perf_counter() - t0, 3)
     t0 = time.perf_counter()
-    base, queries = data()
+    base, queries = bench_data(cache_dir, args.n, args.d, args.queries,
+                               not args.no_cache)
     idx, build_s = build()
     gt = groundtruth()
     rec.section_s["data_build_groundtruth"] = round(time.perf_counter() - t0,

@@ -5,7 +5,7 @@
 
 from the root of the repository. It builds the port's CUDA kernels from
 ``vaq_tpu_torch/csrc`` with ``nvcc`` (into ``build/vaq_tpu_torch/``, one
-``nvcc`` per source, all at once) and runs sixteen phases, printing progress
+``nvcc`` per source, all at once) and runs seventeen phases, printing progress
 as it goes:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc
@@ -102,7 +102,21 @@ as it goes:
    within 1e-5 of the largest), the drift of ten chained iterations
    logged beside that of ``kmeans.lloyd`` on the same rows in another
    order;
-8. ``[crud]``, the same index and probe state mutated: ``add`` of 10,000
+8. ``[checks]``, the checks of JAX's root scripts through their port-side
+   scripts: ``scripts/check_sharded_100k_torch.py``'s ``run`` on the first
+   100,000 rows and 256 queries (``VAQ256m32min7max8var1,TI64m16``, visit
+   1.0, k = 10) unsharded and over 8 shards of the one card, the sharded
+   recall within 0.005 of the unsharded one, qcap holding every query on
+   every shard, K5/K7 launched per shard and then held against their plain
+   versions at those shards' shapes (8 buckets of 2560 int8 rows, qcap
+   256, gs 16; 256 queries × 40 windows of 16 rows);
+   ``scripts/compute_accuracy_torch.py``'s ``main`` on [main]'s decoded
+   answers written as CSV and its groundtruth as ``.ivecs``, its three
+   printed numbers equal to ``metrics``'; ``scripts/oracle_bisect_torch.py``'s
+   ``run`` without the oracle at 20k rows, stage C (the f32 LUT gather) at
+   least stage B (the decoded tier) − 0.01, stage D (the f64 host scan over
+   the same codes) within 0.002 of C;
+9. ``[crud]``, the same index and probe state mutated: ``add`` of 10,000
    rows of the base's own mixture, ``delete`` of 10,000 ids (the first 100
    queries' top-1 among them), then searches on the decoded, int8 and codes
    tiers (K1/K2's counters zeroed before, read after) and the probe at
@@ -113,7 +127,7 @@ as it goes:
    the poisoned slots must be the deleted rows the buckets held; then the
    reference-format artifacts round trip (codes and centroids equal) and
    ``load(with_codes=False)``;
-9. the FAST/LUT path on the same data, ``VAQ256m64min1max4var1,FAST``
+10. the FAST/LUT path on the same data, ``VAQ256m64min1max4var1,FAST``
    (``bench.py:603``'s FAST config at d = 128): train and encode twice
    (the two rotations, codebooks and codes must be bit-equal),
    ``search(backend="fast4")`` (K3), ``learn_quantization``, the same search
@@ -124,11 +138,14 @@ as it goes:
    ``fast.rescore``, ``fast.topk``) and its busy share of the unprofiled
    wall; K3's, K4's and K1's counters are zeroed before their steps and must
    have moved after them;
-10. ``[wide]``: ``VAQ256m32min2max13var1,HEAP`` with the hierarchical
+11. ``[wide]``: ``VAQ256m32min2max13var1,HEAP`` with the hierarchical
    k-means (up to 13-bit subspaces, int32 codes) on the same 1M rows:
    train and encode times, the decoded tier's recall and refine 200 → 100
-   against the main groundtruth; the codes tier must refuse it;
-11. ``[binary]``, the BitVecEngine (``vaq_tpu_torch/binary.py``) on the
+   against the main groundtruth, then ``scripts/widebits_1m_torch.py``'s
+   u16 gate on the first 131,072 rows and 128 queries (the f32 LUT-gather
+   top-10 over the codes against the decoded tier's, overlap at least
+   0.95); the codes tier must refuse it;
+12. ``[binary]``, the BitVecEngine (``vaq_tpu_torch/binary.py``) on the
    main path's 1M rows, queries and groundtruth: ``BinaryIndex(256)``
    trained and encoded on the host, then ``query`` k = 100 through
    ``"auto"`` (the ``_int_mm`` form) and ``"packed"`` (kernel H1), which
@@ -145,7 +162,7 @@ as it goes:
    and refined; each step's wall, QPS, recall and peak memory; H1's
    launch count zeroed before each of its steps and K1/K2's before the
    codes tier, each required to move;
-12. ``[cli]``: ``vaq_tpu_torch.cli.demo_vaq.main`` on 100,000 synthetic
+13. ``[cli]``: ``vaq_tpu_torch.cli.demo_vaq.main`` on 100,000 synthetic
    rows, ``--backend codes --refine 100,200``, its printed lines kept, and
    on 102,400 rows, where refine 100's search runs K1/K2 (counted; K1's
    16-row windows are held against the plain version in phase 3); then at
@@ -154,7 +171,7 @@ as it goes:
    reading), ``demo_boltcentroids --subspace 32`` (512 centroids of 4
    finite numbers) and ``demo_vaq_paramsearch`` on JAX's default grid (its
    seven rows; ``METHOD``'s within 0.005 of phase 4's decoded recall);
-13. one index state searched on the card and through the port's CPU plain
+14. one index state searched on the card and through the port's CPU plain
    versions at n = 20k (the decoded and codes tiers, refine, an IVF state
    built on the card and copied to the CPU at d = 128 and d = 96, that
    state mutated alike on both by add and delete, the hierarchical and the
@@ -163,7 +180,7 @@ as it goes:
    quantizers and through ``"lut_gather"``, and a ``BinaryIndex(256)``
    state through packed, matmul, Jaccard, both filters and the cluster
    probe); the answers must agree, the binary ones identically;
-14. ``[bench]``: ``python3 bench_torch.py --second-n 0 --no-oracle`` as a
+15. ``[bench]``: ``python3 bench_torch.py --second-n 0 --no-oracle`` as a
    subprocess, ``bench.py``'s sections on the port at 1M × 128 (recall and
    refine, the headline five times, the kernel gate, the int8 and Hamming
    tiers, the codes tier on the HEAP and FAST indexes, the IVF probe at
@@ -176,7 +193,7 @@ as it goes:
    those phase 3 holds for it (K1 at 1024 queries in 512-row windows on
    both indexes, K5 at qcap = 216, K7 at 1024 × 20 windows of 8 rows), and
    the launches at those shapes are those entries' ``launches``;
-15. ``[deep100m]``: ``scripts/capacity_100m_torch.py``'s ``run()`` at the
+16. ``[deep100m]``: ``scripts/capacity_100m_torch.py``'s ``run()`` at the
    full DEEP-100M size, 100M × 96, ``VAQ256m32min5max8var1``, 1024 queries,
    k = 10: rows generated on the card, train, streamed encode, exact
    groundtruth@100, the codes tier (K1/K2's counters zeroed before, read
@@ -303,6 +320,15 @@ SWEEP_SUBMITTERS, SWEEP_REQUESTS, SWEEP_CAP = 8, 4096, 128_000.0
 # visit 0.1; the distributed Lloyd on the first 200k rows, 256 clusters
 SHARDS, SHARD_VISIT = (2, 4), 0.10
 KM_ROWS, KM_K, KM_ITERS = 200_000, 256, 10
+# [checks]: scripts/check_sharded_100k_torch.py's check on [main]'s first
+# 100k rows and 256 queries (VAQ256m32min7max8var1,TI64m16 at visit 1.0,
+# k = 10) over 8 shards of the one card, the sharded recall within 0.005 of
+# the unsharded one; scripts/oracle_bisect_torch.py without the oracle on
+# [main]'s first 20k rows and its queries, k = 10, C (the f32 LUT gather)
+# at least B (the decoded tier) − 0.01 and D (the f64 host scan over the
+# same codes) within 0.002 of C
+CHECK_N, CHECK_NQ, CHECK_SHARDS, CHECK_K = 100_000, 256, 8, 10
+BISECT_N, BISECT_K = 20_000, 10
 TI_CLUSTERS, TI_SEGMENTS = 1000, 16       # bench.py:642-643
 VISITS = (0.25, 0.10, 0.05, 1.0)          # Fig. 11 (ExperimentsParameters.txt:114-124), then all
 # K3/K4 at the FAST path's shape (M = 64, C = 16, 256-row windows, 512
@@ -318,6 +344,10 @@ N_ADD, N_DEL, N_SELF = 10_000, 10_000, 256
 # 13 bits (~8k nodes a subspace) waits for the level-batched form (ROADMAP
 # queue 2b, item 13)
 WIDE_METHOD = "VAQ256m32min2max13var1,HEAP"
+# scripts/widebits_1m_torch.py's u16 gate on [wide]'s index (its first
+# 131,072 rows, 128 queries, k = 10): the f32 LUT-gather top-k must share
+# at least this much with the decoded tier's (JAX read 0.9891 at 20k rows)
+WIDE_GATE_MIN, WIDE_GATE_K = 0.95, 10
 BINARY_METHOD = "VAQ96m16min5max9var1,HEAP"
 # [cli]: demo_vaq's flags. At 100k rows the codes tier has windows of
 # 100000 // (64·k) rows, 15 at k = 100 and 7 at k = 200: below 16 rows, so
@@ -402,6 +432,17 @@ def log(msg: str) -> None:
 def _run(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
+
+
+def _script(name: str):
+    """The module of ``scripts/<name>.py`` (the port's scripts import
+    ``vaq_tpu_torch`` and ``bench_torch``, never the JAX package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def phase_environment() -> str:
@@ -511,11 +552,13 @@ def _probe_rows(gen, d, dtype, ncl=KC_NCL, cap=KC_CAP):
 
 def _check_groupmin(gen, d: int, dtype: str, qcap: int = KC_QCAP,
                     slots_mean: int | None = None, ncl: int = KC_NCL,
-                    cap: int = KC_CAP, gs: int = KC_GS) -> dict:
+                    cap: int = KC_CAP, gs: int = KC_GS, name: str | None = None,
+                    tag: str = "kernels") -> dict:
     """K5 over ``ncl`` probe buckets of ``cap`` seeded rows (the 1M
     index's by default), all ``qcap`` slots occupied or, with
     ``slots_mean``, n_slots drawn around it per cluster (as the dispatch
-    fills them), held against its plain version by :func:`_held_groupmin`."""
+    fills them), held against its plain version by :func:`_held_groupmin`;
+    ``name`` replaces the entry's name built from the shape."""
     dev = torch.device(DEVICE)
     rows, w = _probe_rows(gen, d, dtype, ncl, cap)
     qsl = (-2.0 * torch.randn((ncl, qcap, d), generator=gen,
@@ -526,14 +569,16 @@ def _check_groupmin(gen, d: int, dtype: str, qcap: int = KC_QCAP,
             slots_mean + 12.0 * torch.randn((ncl,), generator=gen, device=dev)),
             0, qcap).to(torch.int32)
     k6 = d % 128 != 0
-    name = ("groupmin_window_scan" + (f"_d{d}" if k6 else "")
-            + ("" if gs == KC_GS else f"_gs{gs}")
-            + ("" if dtype == "int8" else "_bf16")
-            + ("" if qcap == KC_QCAP else f"_q{qcap}")
-            + ("" if slots_mean is None else f"_slots{slots_mean}"))
+    name = name or ("groupmin_window_scan" + (f"_d{d}" if k6 else "")
+                    + ("" if gs == KC_GS else f"_gs{gs}")
+                    + ("" if dtype == "int8" else "_bf16")
+                    + ("" if qcap == KC_QCAP else f"_q{qcap}")
+                    + ("" if slots_mean is None else f"_slots{slots_mean}"))
     what = (f"d={d} {dtype} rows, qcap={qcap}"
-            + ("" if gs == KC_GS else f", {ncl} buckets of {cap} rows, gs={gs}"))
-    return _held_groupmin((qsl, rows, w, ncl, cap, gs, n_slots), name, what)
+            + ("" if gs == KC_GS and ncl == KC_NCL
+               else f", {ncl} buckets of {cap} rows, gs={gs}"))
+    return _held_groupmin((qsl, rows, w, ncl, cap, gs, n_slots), name, what,
+                          tag)
 
 
 def _held_groupmin(args, name: str, what: str, tag: str = "kernels",
@@ -593,22 +638,24 @@ def _held_groupmin(args, name: str, what: str, tag: str = "kernels",
 
 def _check_rescore(gen, d: int, dtype: str, nq: int = KC_NQ,
                    win: int = KC_WIN, gs: int = KC_GS, ncl: int = KC_NCL,
-                   cap: int = KC_CAP, suffix: str = "") -> dict:
+                   cap: int = KC_CAP, suffix: str = "", name: str | None = None,
+                   tag: str = "kernels") -> dict:
     """K7 on ``nq`` queries × ``win`` windows of ``gs`` rows drawn from
     ``ncl`` probe buckets of ``cap`` seeded rows (512 × 200 windows of 8
     rows from the 1M buckets by default), held against its plain version by
-    :func:`_held_rescore`; ``suffix`` ends the entry's name."""
+    :func:`_held_rescore`; ``suffix`` ends the entry's name, ``name``
+    replaces it."""
     dev = torch.device(DEVICE)
     rows, w = _probe_rows(gen, d, dtype, ncl, cap)
     q = torch.randn((nq, d), generator=gen, device=dev)
     wblk = torch.randint(0, rows.shape[0] // gs, (nq, win), generator=gen,
                          device=dev, dtype=torch.int32)
-    name = ("gather_rescore" + (f"_d{d}" if d % 128 else "")
-            + ("" if gs == KC_GS else f"_gs{gs}")
-            + ("" if dtype == "int8" else "_bf16") + suffix)
+    name = name or ("gather_rescore" + (f"_d{d}" if d % 128 else "")
+                    + ("" if gs == KC_GS else f"_gs{gs}")
+                    + ("" if dtype == "int8" else "_bf16") + suffix)
     return _held_rescore((q, w, rows, wblk, gs), name,
                          f"d={d} {dtype} rows, {nq} queries × {win} windows "
-                         f"of {gs}")
+                         f"of {gs}", tag)
 
 
 def _held_rescore(args, name: str, what: str, tag: str = "kernels") -> dict:
@@ -1123,7 +1170,7 @@ def phase_main_path() -> tuple[dict, dict]:
     assert top1 >= 0.9, top1
     assert r_ref >= r_dec, (r_ref, r_dec)
     return launches, {"idx": idx, "base": base, "queries": queries, "gt": gt,
-                      "r_dec": r_dec}
+                      "r_dec": r_dec, "l_dec": l_dec}
 
 
 def _device_split(prof, names) -> tuple[dict, float]:
@@ -1627,6 +1674,92 @@ def phase_shard(ctx: dict) -> dict:
     return launches
 
 
+def phase_checks(ctx: dict) -> tuple[dict, list[dict]]:
+    """The checks of JAX's root scripts through their port-side scripts:
+    ``check_sharded_100k_torch.run`` on [main]'s first CHECK_N rows and
+    CHECK_NQ queries over CHECK_SHARDS shards of the one card (|Δrecall| <
+    0.005, qcap ≥ the queries on every shard), then K5 and K7 held against
+    their plain versions at the shapes its shards launch them;
+    ``compute_accuracy_torch.main`` on [main]'s decoded answers written as
+    CSV and its groundtruth as ``.ivecs`` (the three printed numbers equal
+    to ``metrics``'); ``oracle_bisect_torch.run`` without the oracle at
+    BISECT_N rows. Returns the launches of K5/K7 in the sharded search,
+    under the entries' names, and the entries."""
+    from vaq_tpu_torch import io as vio
+    from vaq_tpu_torch import metrics
+    base, queries = ctx["base"], ctx["queries"]
+    s = CHECK_SHARDS
+    t_phase = time.perf_counter()
+
+    # the sharded probe at visit 1.0
+    check = _script("check_sharded_100k_torch")
+    _kernel_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, sidx = check.run(base[:CHECK_N], queries[:CHECK_NQ], s, CHECK_K,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    log(f"[checks] sharded visit-1.0 check, {CHECK_N} rows, {CHECK_NQ} "
+        f"queries, S = {s} on the one card: {json.dumps(rec)}; {wall:.1f} s, "
+        f"launches {counts}")
+    assert rec["recalls_agree"], rec
+    _, _, qcap, gs = rec["sharded_p_visit_p_max_qcap_gs"]
+    assert qcap >= CHECK_NQ and rec["unsharded_p_visit_p_max_qcap_gs"][2] >= \
+        CHECK_NQ, rec
+    sharded = rec["sharded_launches"]
+    assert sharded.get("groupmin_window_scan", 0) > 0, rec
+    assert sharded.get("gather_rescore", 0) > 0, rec
+    assert counts["groupmin_window_scan"] >= sharded["groupmin_window_scan"]
+    del sidx
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    names = (f"groupmin_window_scan_shard{s}_v1", f"gather_rescore_shard{s}_v1")
+    entries = [
+        _check_groupmin(gen, rec["d"], "int8", qcap, ncl=rec["clusters_per_shard"],
+                        cap=rec["cap"], gs=gs, name=names[0], tag="checks"),
+        _check_rescore(gen, rec["d"], "int8", CHECK_NQ, rec["sharded_windows"],
+                       gs, rec["clusters_per_shard"], rec["cap"], name=names[1],
+                       tag="checks")]
+    torch.cuda.empty_cache()
+    launches = {names[0]: sharded["groupmin_window_scan"],
+                names[1]: sharded["gather_rescore"]}
+
+    # the CSV accuracy checker on [main]'s answers
+    accuracy = _script("compute_accuracy_torch")
+    lab, gt = ctx["l_dec"], ctx["gt"]
+    with tempfile.TemporaryDirectory() as tmp:
+        answers, truth = os.path.join(tmp, "answers.csv"), \
+            os.path.join(tmp, "gt.ivecs")
+        np.savetxt(answers, lab, fmt="%d", delimiter=",")
+        vio.write_ivecs(truth, gt)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = accuracy.main([answers, truth, "--k", "100"])
+    want = [f"avg_recall: {metrics.avg_recall(lab, gt, 100):.6f}",
+            f"recall@R:   {metrics.recall_at_r(lab, gt, 100):.6f}",
+            f"MAP:        {metrics.mean_average_precision(lab, gt, 100):.6f}"]
+    log(f"[checks] compute_accuracy_torch on [main]'s decoded answers: "
+        f"{out.getvalue().splitlines()}")
+    assert rc == 0 and out.getvalue().splitlines() == want, (out.getvalue(),
+                                                             want)
+
+    # the engine-vs-oracle bisection, the oracle left out
+    bisect = _script("oracle_bisect_torch")
+    t0 = time.perf_counter()
+    rec = bisect.run(base[:BISECT_N], queries, BISECT_K, METHOD, oracle=False,
+                     device=DEVICE)
+    log(f"[checks] oracle bisection at {BISECT_N} rows without the oracle: "
+        f"{json.dumps(rec)}; {time.perf_counter() - t0:.1f} s")
+    b, c, d = (rec["B_engine_exact_topk"], rec["C_engine_f32_adc"],
+               rec["D_oracle_scan_engine_codes"])
+    assert rec["A_engine_default"] == b, rec
+    assert c >= b - 0.01 and abs(d - c) <= 0.002, rec
+    log(f"[checks] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, entries
+
+
 def _live_groundtruth(rows: torch.Tensor, dead: np.ndarray, queries, k: int
                       ) -> np.ndarray:
     """Exact top-k ids of ``queries`` over the rows not in ``dead``, on the
@@ -1866,6 +1999,16 @@ def phase_wide(ctx: dict) -> None:
         f"{r_ref:.4f} (main path's decoded {ctx['r_dec']:.4f})")
     assert np.isfinite(d).all() and (lab >= 0).all()
     assert np.isfinite(d_ref).all() and r_ref >= r_dec
+    gate = _script("widebits_1m_torch")
+    overlap, l_lut, _ = _step(
+        f"u16 gate: the f32 LUT-gather top-{WIDE_GATE_K} over the first "
+        f"{gate.GATE_ROWS} rows' codes, {gate.GATE_QUERIES} queries, against "
+        f"the decoded tier's", lambda: gate.u16_gate(idx, queries, WIDE_GATE_K),
+        tag="wide")
+    log(f"[wide] u16_gate_overlap {overlap:.4f} (JAX 0.9891 at 20k rows; "
+        f"required >= {WIDE_GATE_MIN})")
+    assert l_lut.shape == (gate.GATE_QUERIES, WIDE_GATE_K)
+    assert overlap >= WIDE_GATE_MIN, overlap
     try:
         idx.search(queries[:8], 100, backend="codes")
     except vt.ConfigError as e:
@@ -2529,14 +2672,8 @@ def phase_deep100m() -> tuple[dict, list[dict]]:
     returns the launches of K1/K2 (counted over the codes tier) and K5/K7
     (over the visit sweep), and the entries of those kernels held against
     their plain versions on the path's own resident data."""
-    import importlib.util
     from vaq_tpu_torch import ivf
-    spec = importlib.util.spec_from_file_location(
-        "capacity_100m_torch", os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "scripts",
-            "capacity_100m_torch.py"))
-    capacity = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(capacity)
+    capacity = _script("capacity_100m_torch")
     t0 = time.perf_counter()
     out, idx, state, qp = capacity.run(n=DEEP_N, d=DEEP_D, queries=DEEP_NQ,
                                        k=DEEP_K, batch=DEEP_NQ, device=DEVICE)
@@ -2681,6 +2818,10 @@ def main() -> int:
     assert "decode_window_scan_br32" in shard, "no shard count gave 32-row windows"
     launches["decode_window_scan_br32"] = shard.pop("decode_window_scan_br32")
     by_path.update(shard)
+    torch.cuda.empty_cache()
+    check_launches, check_kernels = phase_checks(ctx)
+    launches.update(check_launches)
+    kernels += check_kernels
     torch.cuda.empty_cache()
     phase_crud(ctx)
     ctx["idx"] = None

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it never imports jax or vaq_tpu (nor, for
-bench_torch.py, JAX's bench.py), it sets the full-f32 precision policy at
-import, and chip_smoke.py refuses to run (and prints no result) without a
-CUDA card."""
+bench_torch.py and the port's scripts, JAX's bench.py), it sets the
+full-f32 precision policy at import, its entry points (the scripts' ``main``
+included) run on the card unless asked for the CPU, and chip_smoke.py
+refuses to run (and prints no result) without a CUDA card."""
 
 import ast
 import json
@@ -37,9 +38,27 @@ def _python(code: str, cwd: Path = ROOT, env_extra=None):
                           capture_output=True, text=True, timeout=120)
 
 
+def _port_scripts():
+    """Every ``scripts/*.py`` of the port: each one that imports torch or
+    vaq_tpu_torch."""
+    return sorted(p for p in (ROOT / "scripts").glob("*.py")
+                  if any(m.split(".")[0] in ("torch", "vaq_tpu_torch")
+                         for m in _imports(p)))
+
+
+PORT_SCRIPTS = ["capacity_100m_torch", "check_sharded_100k_torch",
+                "compute_accuracy_torch", "fast4_breakdown",
+                "fast4_tile_sweep", "k1_breakdown", "k5_breakdown",
+                "oracle_bisect_torch", "rescore_breakdown", "search_qps",
+                "widebits_1m_torch"]
+
+
+def test_port_scripts_are_found_by_their_imports():
+    assert [p.stem for p in _port_scripts()] == PORT_SCRIPTS
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "capacity_100m_torch.py",
-    ROOT / "bench_torch.py"],
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + _port_scripts(),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_vaq_tpu_import_in_source(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
@@ -64,7 +83,8 @@ def test_import_loads_neither_jax_nor_vaq_tpu_and_sets_precision():
         "import vaq_tpu_torch.cli.demo_boltcentroids\n"
         "import vaq_tpu_torch.cli.demo_vaq_paramsearch\n"
         "import runpy\n"
-        "runpy.run_path('scripts/capacity_100m_torch.py')\n"
+        f"for p in {[str(p) for p in _port_scripts()]!r}:\n"
+        "    runpy.run_path(p)\n"
         "runpy.run_path('bench_torch.py')\n"
         "print(json.dumps({\n"
         "  'mods': sorted(m for m in sys.modules),\n"
@@ -111,6 +131,14 @@ def test_chip_smoke_alone_fails(tmp_path):
                           env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _script_main(name: str, tmp_path):
+    """``main`` of ``scripts/<name>.py``, its record sent under
+    ``tmp_path``."""
+    from test_torch_compute_accuracy import load_script
+    main = load_script(name).main
+    return lambda: main(["--out", str(tmp_path / f"{name}.json")])
 
 
 def _entry_points(tmp_path):
@@ -179,6 +207,9 @@ def _entry_points(tmp_path):
         "VAQIndex.shard": lambda: idx.shard(),
         "serve.main": lambda: serve.main(["--index",
                                           str(tmp_path / "i.npz")]),
+        **{f"{name}.main": _script_main(name, tmp_path) for name in (
+            "check_sharded_100k_torch", "widebits_1m_torch",
+            "oracle_bisect_torch")},
     }
 
 
@@ -190,7 +221,9 @@ ENTRY_POINTS = ["VAQIndex", "VAQIndex.load", "index_from_numpy",
                 "ScalarLUTIndex", "query_naive_streaming",
                 "build_hamming_clusters", "binary_index_from_numpy",
                 "hamming_clusters_from_numpy", "make_mesh", "pod_mesh",
-                "VAQIndex.shard", "serve.main"]
+                "VAQIndex.shard", "serve.main",
+                "check_sharded_100k_torch.main", "widebits_1m_torch.main",
+                "oracle_bisect_torch.main"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
