@@ -15,7 +15,7 @@ from test_torch_vaq import jax_state
 from vaq_tpu import metrics
 from vaq_tpu.serving import SearchServer as JaxServer
 from vaq_tpu_torch.convert import index_from_numpy
-from vaq_tpu_torch.profiling import LatencyStats, PhaseTimer, device_trace
+from vaq_tpu_torch.profiling import LatencyStats, device_trace
 from vaq_tpu_torch.serving import SearchServer
 
 torch.set_num_threads(2)  # six test workers share the host
@@ -116,16 +116,6 @@ def test_latency_stats_collected(server_setup):
         assert s["p50_ms"] > 0
     finally:
         srv.close()
-
-
-def test_phase_timer():
-    t = PhaseTimer(sync=False)
-    with t.phase("a"):
-        pass
-    with t.phase("a"):
-        pass
-    assert t.counts["a"] == 2
-    assert "a" in t.report()
 
 
 def test_latency_stats_and_trace_match_jax(tmp_path):

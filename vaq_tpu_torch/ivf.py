@@ -49,9 +49,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from vaq_tpu_torch import kmeans
+from vaq_tpu_torch import kmeans, profiling
 from vaq_tpu_torch.errors import ConfigError
 from vaq_tpu_torch.ops import probe as probe_ops
 from vaq_tpu_torch.ops.probe_scan import (groupmin_window_scan, pick_gs,
@@ -524,9 +523,12 @@ def probe_scan(
     true top-k row has group-min ≤ d_k, and at most k groups can, so the
     top m = 2k windows hold every group with a top-k row.
 
-    The stages run inside profiler ranges ``ivf.probe``, ``ivf.groupmin``
-    (K5), ``ivf.merge``, ``ivf.rescore`` (K7) and ``ivf.second_stage``,
-    which ``torch.profiler`` reads as the probe's time split."""
+    The stages run inside the spans ``ivf.probe``, ``ivf.groupmin`` (K5),
+    ``ivf.merge``, ``ivf.rescore`` (K7) and ``ivf.second_stage``, which
+    ``torch.profiler`` reads as the probe's time split. While a profiler
+    records, the counters ``ivf.entries`` (active (query, cluster) entries)
+    and ``ivf.entries_dropped`` (those ranked at or past qcap in their
+    cluster) grow by this batch's."""
     nq, d_full = qp.shape
     ncl, cap = bucket_ids.shape
     ng = cap // gs
@@ -535,12 +537,16 @@ def probe_scan(
         raise ValueError("int8 bucket rows require dim_scales (and only "
                          "they do)")
     dev = qp.device
-    with record_function("ivf.probe"):
+    with profiling.span("ivf.probe"):
         cd = probe_ops.cluster_sq_dists(qp[:, : centroids.shape[1]],
                                         centroids)
         probe, active = probe_ops.dynamic_probe(cd, sizes, k, p_visit, p_max)
         table, ok, ent_c, ent_r = probe_ops.dispatch_table(probe, active,
                                                            ncl, qcap)
+        if profiling.recording():
+            profiling.count("ivf.entries", active.sum())
+            profiling.count("ivf.entries_dropped",
+                            (active.reshape(-1) & ~ok).sum())
         # fold the int8 per-dim scales into the query: (q/s)·rows_i8 = q·x̂
         q_eff = qp if dim_scales is None else qp / dim_scales[None, :]
         qp_pad = torch.cat([q_eff, torch.zeros((1, d_full), device=dev)])
@@ -549,11 +555,11 @@ def probe_scan(
                  else 1.0 / (dim_scales * dim_scales))
         n_slots = torch.sum(table < nq, dim=1, dtype=torch.int32)
     rows_flat = bucket_rows.view(ncl * cap, d_full)
-    with record_function("ivf.groupmin"):
+    with profiling.span("ivf.groupmin"):
         mins = groupmin_window_scan(qsl, rows_flat, dim_w, ncl, cap, gs,
                                     n_slots)               # (ncl, qcap, ng)
 
-    with record_function("ivf.merge"):
+    with profiling.span("ivf.merge"):
         # per-query merge: each dispatched entry's group minima, top-m
         # windows
         flat = mins.view(ncl * qcap, ng)
@@ -566,7 +572,7 @@ def probe_scan(
         clus = torch.gather(probe, 1, (pos // ng).to(torch.int64))
         wblk = (clus * ng + (pos % ng)).to(torch.int32)    # (nq, m) windows
 
-    with record_function("ivf.rescore"):
+    with profiling.span("ivf.rescore"):
         blk_ids = bucket_ids.view(ncl * ng, gs)[wblk.to(torch.int64)]
         raw = gather_rescore(q_eff.contiguous(), dim_w, rows_flat, wblk, gs)
         score = torch.where(w_ok[:, :, None] & (blk_ids >= 0), raw,
@@ -580,7 +586,7 @@ def probe_scan(
         top_i = torch.gather(rows, 1, post)
     qn = torch.sum(qp * qp, dim=1)
     if rescore_rows is not None:
-        with record_function("ivf.second_stage"):
+        with profiling.span("ivf.second_stage"):
             # exact second stage against the flat bf16 decoded rows: the
             # stage-1 selection is in the int8 reconstruction's metric
             safe = torch.clamp_min(top_i, 0).to(torch.int64)
@@ -634,14 +640,17 @@ class IVFSearcher:
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One batch of projected queries on the state's device. The exact
         second stage runs for int8 buckets when ``index`` holds its decoded
-        tier already; it is never built for it (at 100M it cannot exist)."""
+        tier already; it is never built for it (at 100M it cannot exist).
+        ``params`` and the centroids' upload run in the span
+        ``ivf.params``."""
         st = self.state
-        p_visit, p_max, qcap, gs = self.params(k, qp.shape[0])
+        with profiling.span("ivf.params"):
+            p_visit, p_max, qcap, gs = self.params(k, qp.shape[0])
+            cents = torch.as_tensor(st.centroids, device=qp.device)
         r_rows = r_norms = None
         if st.dim_scales is not None and index is not None and \
                 index.decoded is not None:
             r_rows, r_norms = index.decoded, index.decoded_norms
-        cents = torch.as_tensor(st.centroids, device=qp.device)
         return probe_scan(qp, cents, st.bucket_rows, st.bucket_ids, st.sizes,
                           k, p_visit, p_max, qcap, gs,
                           dim_scales=st.dim_scales, rescore_rows=r_rows,

@@ -42,9 +42,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from vaq_tpu_torch import _build
+from vaq_tpu_torch import _build, profiling
 from vaq_tpu_torch.device import DEFAULT, resolve
 
 _INT32_MAX = 2**31 - 1
@@ -335,22 +334,29 @@ def decode_scan_topk(codes: torch.Tensor, table: torch.Tensor,
 
     Returns (sq_dists (nq, k) f32 ascending, labels (nq, k) int32); distances
     are exact ADC sums for the returned ids; −1 / +inf fill missing entries.
+    The stages run in the spans ``codes.scan`` (K1 alone), ``codes.select``
+    (the window top-2k, then the final top-k) and ``codes.rescore`` (K2
+    alone).
     """
     n = codes.shape[0]
-    scores, ids = decode_window_scan(codes, table, qp, block_rows)
-    invalid = ids >= n          # the window's best row was padding
-    scores = torch.where(invalid, torch.inf, scores)
-    kk = min(2 * k, scores.shape[1])
-    _, pos = _select_lowest(scores, kk)
-    top_ids = torch.where(torch.gather(invalid, 1, pos), -1,
-                          torch.gather(ids, 1, pos))
-    d2 = decode_rescore(codes, top_ids.contiguous(), rows, qp)
-    if kk < k:
-        d2 = torch.nn.functional.pad(d2, (0, k - kk), value=torch.inf)
-        top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
-    top, pos2 = _select_lowest(d2, k)
-    out_ids = torch.gather(top_ids, 1, pos2)
-    return top, torch.where(torch.isfinite(top), out_ids, -1)
+    with profiling.span("codes.scan"):
+        scores, ids = decode_window_scan(codes, table, qp, block_rows)
+    with profiling.span("codes.select"):
+        invalid = ids >= n          # the window's best row was padding
+        scores = torch.where(invalid, torch.inf, scores)
+        kk = min(2 * k, scores.shape[1])
+        _, pos = _select_lowest(scores, kk)
+        top_ids = torch.where(torch.gather(invalid, 1, pos), -1,
+                              torch.gather(ids, 1, pos))
+    with profiling.span("codes.rescore"):
+        d2 = decode_rescore(codes, top_ids.contiguous(), rows, qp)
+    with profiling.span("codes.select"):
+        if kk < k:
+            d2 = torch.nn.functional.pad(d2, (0, k - kk), value=torch.inf)
+            top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
+        top, pos2 = _select_lowest(d2, k)
+        out_ids = torch.gather(top_ids, 1, pos2)
+        return top, torch.where(torch.isfinite(top), out_ids, -1)
 
 
 def _select_lowest(scores: torch.Tensor, k: int
@@ -641,19 +647,19 @@ def fast4_scan_topk(codes: torch.Tensor, luts: torch.Tensor, k: int,
     JAX pads them (scan_pallas.py:636-701): padded rows count as code 0 and
     a window whose best row is padding carries no candidate. Both selections
     break ties toward the lower position, as JAX's ``top_k`` does. The
-    stages run in profiler ranges ``fast.scan``, ``fast.select``,
-    ``fast.rescore`` and ``fast.topk``. Returns
+    stages run in the spans ``fast.scan``, ``fast.select``, ``fast.rescore``
+    and ``fast.topk``. Returns
     (sq_dists (nq, k) f32 ascending, labels (nq, k) int32); −1 / +inf fill
     missing entries.
     """
     n = codes.shape[0]
     n_valid = n if n_valid is None else int(n_valid)
     n_win = (n + (-n) % (W_PER_CELL * block_rows)) // block_rows
-    with record_function("fast.scan"):
+    with profiling.span("fast.scan"):
         scan_luts = luts if luts8 is None else \
             (luts8.to(torch.int16) - 128).to(torch.int8)
         scores, ids = fast4_window_scan(codes, scan_luts, block_rows, n_win)
-    with record_function("fast.select"):
+    with profiling.span("fast.select"):
         invalid = ids >= n_valid
         big = _INT32_MAX if scores.dtype == torch.int32 else torch.inf
         scores = torch.where(invalid, big, scores)
@@ -661,12 +667,12 @@ def fast4_scan_topk(codes: torch.Tensor, luts: torch.Tensor, k: int,
         _, pos = _select_lowest(scores, kk)
         top_ids = torch.where(torch.gather(invalid, 1, pos), -1,
                               torch.gather(ids, 1, pos))
-    with record_function("fast.rescore"):
+    with profiling.span("fast.rescore"):
         rows = top_ids.clamp(0, max(n - 1, 0)).to(torch.int64)
         cand = codes[rows].to(torch.int64).transpose(1, 2)     # (nq, M, kk)
         d2 = torch.gather(luts, 2, cand).sum(dim=1)
         d2 = torch.where((top_ids >= 0) & (top_ids < n_valid), d2, torch.inf)
-    with record_function("fast.topk"):
+    with profiling.span("fast.topk"):
         if kk < k:
             d2 = torch.nn.functional.pad(d2, (0, k - kk), value=torch.inf)
             top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)

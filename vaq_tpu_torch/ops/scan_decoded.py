@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from vaq_tpu_torch import profiling
 from vaq_tpu_torch.ops.distances import lowest_over_blocks
 from vaq_tpu_torch.ops.scan_codes import _select_lowest
 
@@ -79,13 +80,17 @@ def _scan_topk(rows: torch.Tensor, norms: torch.Tensor, q32: torch.Tensor,
     bf16×bf16 torch.matmul would return bf16 and rounding the scores to 8
     mantissa bits would reorder the over-fetch. So both operands run in f32:
     products of bf16 (and int8) values are exact in f32, so only the
-    summation order differs from JAX."""
+    summation order differs from JAX. Each block's scores are made in a
+    ``decoded.scores`` span, and its selection runs outside it."""
     n = rows.shape[0]
 
     def blocks():
         for start in range(0, n, BLOCK_ROWS):
-            blk = rows[start:start + BLOCK_ROWS].to(torch.float32)
-            yield norms[None, start:start + blk.shape[0]] - 2.0 * (q32 @ blk.T), start
+            with profiling.span("decoded.scores"):
+                blk = rows[start:start + BLOCK_ROWS].to(torch.float32)
+                scores = norms[None, start:start + blk.shape[0]] \
+                    - 2.0 * (q32 @ blk.T)
+            yield scores, start
 
     neg, best_i = lowest_over_blocks(blocks, kk)
     # tombstoned rows carry -inf scores; never let the exact rescore
@@ -104,14 +109,17 @@ def decoded_scan_topk(
     decoded (n, D) bf16; norms (n,) f32 (+inf marks tombstoned rows);
     queries_proj (nq, D) f32. Returns (sq_dists (nq, k) f32 exact,
     labels (nq, k) int32), ascending; -1 / +inf where fewer than k rows live.
+    Runs in a ``decoded.scan`` span, each block's scores in a
+    ``decoded.scores`` span inside it.
     """
-    n = decoded.shape[0]
-    kk = min(max(2 * k, k + 16), n)
-    q32 = queries_proj.to(torch.bfloat16).to(torch.float32)
-    idx = _scan_topk(decoded, norms, q32, kk)
-    if kk < k:
-        idx = torch.nn.functional.pad(idx, (0, k - kk), value=-1)
-    return _rescore_exact(queries_proj, decoded, idx, k)
+    with profiling.span("decoded.scan"):
+        n = decoded.shape[0]
+        kk = min(max(2 * k, k + 16), n)
+        q32 = queries_proj.to(torch.bfloat16).to(torch.float32)
+        idx = _scan_topk(decoded, norms, q32, kk)
+        if kk < k:
+            idx = torch.nn.functional.pad(idx, (0, k - kk), value=-1)
+        return _rescore_exact(queries_proj, decoded, idx, k)
 
 
 def int8_dim_scales(centroids) -> torch.Tensor:

@@ -1,54 +1,71 @@
-"""Phase timing + serving statistics + profiler hooks.
+"""Spans, counters, serving statistics and the profiler hook.
 
-The counterpart of ``vaq_tpu/profiling.py``. The reference instruments every
-pipeline stage with steady-clock macros (``START_TIMING``/``END_TIMING``,
-utils/TimingUtils.hpp:28-33) and prints per-phase seconds. ``PhaseTimer``
-does the same as a context manager and makes device work observable by
-synchronizing the CUDA device at each phase's end (where JAX calls
-``jax.effects_barrier()``); ``LatencyStats`` is copied from JAX's; and
-``device_trace`` wraps a region in a ``torch.profiler`` trace.
+The counterpart of ``vaq_tpu/profiling.py``, less JAX's ``PhaseTimer``: a
+timer that synchronises the card at every phase's end changes what it
+times, where a ``torch.profiler`` trace times each stage on the card's own
+clock. The search path marks its stages with :func:`span` and counts the
+probe's entries with :func:`count`; both cost one read of the profiler's
+flag while no profiler records. ``LatencyStats`` is copied from JAX's;
+``device_trace`` wraps a region in a ``torch.profiler`` trace, which holds
+the spans and the kernels on one timeline.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List
 
 import torch
+from torch.profiler import record_function
+
+# the profiler's flag for the calling thread: a ``record_function`` range
+# reaches a profiler only on the thread that started it
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+# count()'s totals, one 0-d int64 tensor a name
+_totals: Dict[str, torch.Tensor] = {}
+_totals_lock = threading.Lock()
 
 
-@dataclass
-class PhaseTimer:
-    """Accumulating named phase timers (the START/END_TIMING counterpart)."""
+def recording() -> bool:
+    """Whether a ``torch.profiler`` (or autograd profiler) records the
+    calling thread."""
+    return _profiler_enabled()
 
-    sync: bool = True       # wait for pending CUDA work at each phase's end
-    totals: Dict[str, float] = field(default_factory=dict)
-    counts: Dict[str, int] = field(default_factory=dict)
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            # a process that never touched the card has nothing to wait for
-            if self.sync and torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records the
+    calling thread, else one shared no-op context: with no profiler the cost
+    is the flag read, and no range is made."""
+    return record_function(name) if _profiler_enabled() else _OFF
 
-    def report(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name:24s} {total:9.3f}s  (n={n}, "
-                         f"avg {total / n * 1000:.1f}ms)")
-        return "\n".join(lines)
 
+def count(name: str, n: torch.Tensor) -> None:
+    """Add the 0-d tensor ``n`` to the total ``name`` on ``n``'s device,
+    without waiting for it, while :func:`recording`; nothing otherwise."""
+    if not _profiler_enabled():
+        return
+    with _totals_lock:
+        if name not in _totals:
+            _totals[name] = n.new_zeros((), dtype=torch.int64)
+        _totals[name].add_(n)
+
+
+def counters() -> Dict[str, int]:
+    """The totals of :func:`count` as ints: one wait for the device, here
+    only."""
+    with _totals_lock:
+        return {name: int(t) for name, t in _totals.items()}
+
+
+def reset_counters() -> None:
+    """Forget every total."""
+    with _totals_lock:
+        _totals.clear()
 
 @dataclass
 class LatencyStats:
@@ -101,8 +118,9 @@ class LatencyStats:
 def device_trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the region (host, and the card
     where there is one) into ``log_dir/trace.json`` (chrome://tracing,
-    Perfetto). Yields the profiler, whose ``key_averages()`` sums the time by
-    operator."""
+    Perfetto): the program's spans and the kernels on one timeline, while
+    :func:`count` adds to :func:`counters`. Yields the profiler, whose
+    ``key_averages()`` sums the time by operator and by span."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

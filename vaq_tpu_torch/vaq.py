@@ -47,9 +47,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from vaq_tpu_torch import bitalloc, io, kmeans, pca, rng
+from vaq_tpu_torch import bitalloc, io, kmeans, pca, profiling, rng
 from vaq_tpu_torch.config import SearchMethod, VAQConfig
 from vaq_tpu_torch.device import DEFAULT, resolve
 from vaq_tpu_torch.errors import ConfigError, NotReadyError, ShapeError
@@ -691,66 +690,78 @@ class VAQIndex:
         buckets were built never come back from the probe; the LUT paths
         over-fetch k + #deleted and drop them on the host. ``verbose``
         prints the batch loop's time and QPS, as JAX does.
+
+        The call runs in the span ``index.search``; its head (validation,
+        the route, the output arrays) in ``index.prepare``, and each query
+        batch's upload and copy back in ``index.upload`` and
+        ``index.copy_back`` (:func:`profiling.span`).
         """
-        cfg = self.config
-        if self.eigvecs is None:
-            raise NotReadyError("search() requires train() first")
-        if self.codes is None:
-            raise NotReadyError("search() requires encode() first")
-        n_del = 0 if self.deleted_ids is None else len(self.deleted_ids)
-        k_lut = min(k + n_del, self.n_rows) if n_del else k
-        quantized = bool(cfg.methods & _FAST_FAMILY) and \
-            self.lut_offsets is not None
-        route = _lut_route(backend, cfg.methods, int(self.bits.max()),
-                           self.n_rows, k_lut, self._codes_block_rows(k_lut),
-                           quantized, self.device.type == "cuda",
-                           self.ivf is not None)
-        if route == "ivf" and self.ivf is None:
-            raise NotReadyError(
-                "backend='ivf' requires ivf.attach_ivf(index) first")
-        if route == "ivf" and self._mesh is not None and \
-                self._sharded_ivf is None:
-            raise ConfigError(
-                "index is sharded but the TI/IVF tier was not included in "
-                "shard(tiers=...) — serving the unsharded probe state would "
-                "silently ignore the mesh; re-shard with tiers including "
-                "'ivf'")
-        queries = np.asarray(queries, dtype=np.float32)
-        if queries.ndim != 2:
-            raise ShapeError(f"queries must be (nq, d), got {queries.shape}")
-        if queries.shape[1] > self.eigvecs.shape[0] or \
-                (self.orig_dim and queries.shape[1] != self.orig_dim):
-            raise ShapeError(
-                f"query dim {queries.shape[1]} does not match index dim "
-                f"{self.orig_dim}")
-        queries = io.pad_dims(queries, cfg.subspace_num)
-        k_run = k_lut if route in LUT_ROUTES else k
-        nq = queries.shape[0]
-        all_d = np.empty((nq, k_run), dtype=np.float32)
-        all_i = np.empty((nq, k_run), dtype=np.int32)
-        t0 = time.perf_counter()
-        for start in range(0, nq, query_batch):
-            qb = torch.as_tensor(queries[start:start + query_batch],
-                                 device=self.device)
-            if route == "ivf" and self._sharded_ivf is not None:
-                d, i = self._sharded_ivf.search(
-                    pca.project(qb, self._eigvecs_device()), k)
-            elif route == "ivf":
-                d, i = self.ivf.search(
-                    self, pca.project(qb, self._eigvecs_device()), k)
-            elif route in LUT_ROUTES:
-                d, i = self._lut_search(qb, k_run, route, quantized,
-                                        block_rows)
-            else:
-                d, i = self.search_device(qb, k, backend=route)
-            all_d[start:start + qb.shape[0]] = d.cpu().numpy()
-            all_i[start:start + qb.shape[0]] = i.cpu().numpy()
-        if verbose:
-            dt = time.perf_counter() - t0
-            print(f"== search {nq} queries: {dt:.3f}s ({nq / dt:.1f} QPS)")
-        if k_run > k:
-            return self._drop_tombstones(all_d, all_i, k)
-        return all_d, all_i
+        with profiling.span("index.search"):
+            with profiling.span("index.prepare"):
+                cfg = self.config
+                if self.eigvecs is None:
+                    raise NotReadyError("search() requires train() first")
+                if self.codes is None:
+                    raise NotReadyError("search() requires encode() first")
+                n_del = (0 if self.deleted_ids is None
+                         else len(self.deleted_ids))
+                k_lut = min(k + n_del, self.n_rows) if n_del else k
+                quantized = bool(cfg.methods & _FAST_FAMILY) and \
+                    self.lut_offsets is not None
+                route = _lut_route(
+                    backend, cfg.methods, int(self.bits.max()), self.n_rows,
+                    k_lut, self._codes_block_rows(k_lut), quantized,
+                    self.device.type == "cuda", self.ivf is not None)
+                if route == "ivf" and self.ivf is None:
+                    raise NotReadyError(
+                        "backend='ivf' requires ivf.attach_ivf(index) first")
+                if route == "ivf" and self._mesh is not None and \
+                        self._sharded_ivf is None:
+                    raise ConfigError(
+                        "index is sharded but the TI/IVF tier was not "
+                        "included in shard(tiers=...) — serving the "
+                        "unsharded probe state would silently ignore the "
+                        "mesh; re-shard with tiers including 'ivf'")
+                queries = np.asarray(queries, dtype=np.float32)
+                if queries.ndim != 2:
+                    raise ShapeError(
+                        f"queries must be (nq, d), got {queries.shape}")
+                if queries.shape[1] > self.eigvecs.shape[0] or \
+                        (self.orig_dim and queries.shape[1] != self.orig_dim):
+                    raise ShapeError(
+                        f"query dim {queries.shape[1]} does not match index "
+                        f"dim {self.orig_dim}")
+                queries = io.pad_dims(queries, cfg.subspace_num)
+                k_run = k_lut if route in LUT_ROUTES else k
+                nq = queries.shape[0]
+                all_d = np.empty((nq, k_run), dtype=np.float32)
+                all_i = np.empty((nq, k_run), dtype=np.int32)
+            t0 = time.perf_counter()
+            for start in range(0, nq, query_batch):
+                with profiling.span("index.upload"):
+                    qb = torch.as_tensor(queries[start:start + query_batch],
+                                         device=self.device)
+                if route == "ivf" and self._sharded_ivf is not None:
+                    d, i = self._sharded_ivf.search(
+                        pca.project(qb, self._eigvecs_device()), k)
+                elif route == "ivf":
+                    d, i = self.ivf.search(
+                        self, pca.project(qb, self._eigvecs_device()), k)
+                elif route in LUT_ROUTES:
+                    d, i = self._lut_search(qb, k_run, route, quantized,
+                                            block_rows)
+                else:
+                    d, i = self.search_device(qb, k, backend=route)
+                with profiling.span("index.copy_back"):
+                    all_d[start:start + qb.shape[0]] = d.cpu().numpy()
+                    all_i[start:start + qb.shape[0]] = i.cpu().numpy()
+            if verbose:
+                dt = time.perf_counter() - t0
+                print(f"== search {nq} queries: {dt:.3f}s "
+                      f"({nq / dt:.1f} QPS)")
+            if k_run > k:
+                return self._drop_tombstones(all_d, all_i, k)
+            return all_d, all_i
 
     def _search_luts(self, qp: torch.Tensor, quantized: bool
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -786,7 +797,7 @@ class VAQIndex:
             return scan_codes.decode_scan_topk(
                 self.codes, dec_table, dec_rows, qp, k,
                 block_rows=self._codes_block_rows(k))
-        with record_function("fast.lut"):  # projection, LUTs, quantization
+        with profiling.span("fast.lut"):  # projection, LUTs, quantization
             qp = pca.project(qb, self._eigvecs_device())
             luts, lut8 = self._search_luts(qp, quantized)
             padc = 16 - luts.shape[2]
