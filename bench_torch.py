@@ -214,7 +214,8 @@ def measure_qps(step_fn, qb: torch.Tensor, batch: int, iters: int):
 
 def kernel_launches() -> dict:
     """Each kernel wrapper's launch counter, by kernel."""
-    from vaq_tpu_torch.ops import hamming, probe_scan, rescore, scan_codes
+    from vaq_tpu_torch.ops import (hamming, probe_scan, rescore, scan_codes,
+                                   scan_decoded)
     f4 = scan_codes.fast4_window_scan.launches
     return {"decode_window_scan": scan_codes.decode_window_scan.launches,
             "decode_rescore": scan_codes.decode_rescore.launches,
@@ -222,7 +223,8 @@ def kernel_launches() -> dict:
             "fast4_window_scan_int8": f4["K4"],
             "groupmin_window_scan": probe_scan.groupmin_window_scan.launches,
             "gather_rescore": rescore.gather_rescore.launches,
-            "popcount_dists": hamming.popcount_dists.launches}
+            "popcount_dists": hamming.popcount_dists.launches,
+            "decoded_topk_scan": scan_decoded.decoded_topk_scan.launches}
 
 
 def launches_since(before: dict) -> dict:

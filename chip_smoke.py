@@ -49,7 +49,13 @@ as it goes:
    512 queries × 1M rows × 8 words and at a probe block (10 clusters of
    4000 rows × 208 query slots), bit-equal to its plain version, beside
    its bound (the popcounts at 16 a clock per SM, or its bytes) and the
-   ``_int_mm`` form of the same distances;
+   ``_int_mm`` form of the same distances; D1 (``decoded_topk_scan``, the
+   decoded tier's fused product and top-kk) at the benchmark cell's shape,
+   1024 queries × 1M bf16 rows × 128 at k = 10 (kk = 26), and at [main]'s
+   1000 queries × 1M × 128 at k = 100 and 200 (kk = 200 and 400, the
+   geometries its searches launch), its merged candidates held to the
+   plain blocked scan by ``kernel_check.d1_check``, beside the plain scan
+   and a bf16 ``torch.mm`` then ``torch.topk``;
 4. the codes path at SIFT1M shape, 1M × 128-d,
    ``VAQ256m32min7max8var1,HEAP`` on seeded synthetic data: train, encode,
    search on the decoded and on the codes tier (k = 100), then search 200
@@ -415,7 +421,14 @@ BENCH_QPS = ("decoded8_qps", "hamming_qps", "codes_qps", "fast4_qps",
              "ivf_qps")
 BENCH_GATE_LAUNCHES = {"decode_window_scan": 3, "decode_rescore": 1,
                        "groupmin_window_scan": 4, "gather_rescore": 3,
-                       "popcount_dists": 4}
+                       "popcount_dists": 4, "decoded_topk_scan": 2}
+# D1 at the benchmark's sift1m-heap.batch shape: (n, d, nq, k); and at
+# [main]'s 1M × 128 with its 1000 queries at k = 100 (kk = 200: the decoded
+# searches) and k = 200 (kk = 400: the "auto" search that refine fetches
+# from), whose heaps leave room for fewer warps a block (16-query warps at
+# kk = 400)
+KD1_SHAPE = (1_000_000, 128, 1024, 10)
+KD1_MAIN_SHAPES = ((N_MAIN, D_MAIN, NQ_MAIN, 100), (N_MAIN, D_MAIN, NQ_MAIN, 200))
 # Published H100 SXM peaks (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -927,6 +940,48 @@ def _held_h1(q, x, op: str, name: str, tag: str = "kernels") -> dict:
                   "vaq_tpu/binary.py:121", err, ms, plain, bound, lib_ms)
 
 
+def _held_d1(gen, shape=KD1_SHAPE, name: str = "decoded_topk_scan",
+             tag: str = "kernels") -> dict:
+    """D1 against the plain blocked scan on seeded bf16 rows: its splits'
+    keys merged, then ``kernel_check.d1_check``. Timed beside its bound
+    (the products at the bf16 peak, or the rows, norms and queries read
+    and the keys written), the plain scan (``scan_decoded._scan_topk``)
+    and a bf16 ``torch.mm`` then ``torch.topk`` of the kk lowest (timed
+    only: it picks another set among ties)."""
+    from vaq_tpu_torch.ops import kernel_check, scan_decoded
+    n, d, nq, k = shape
+    dev = torch.device(DEVICE)
+    rows = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+    norms = torch.sum(rows.float() ** 2, dim=1)
+    q = torch.randn((nq, d), generator=gen, device=dev).to(torch.bfloat16)
+    kk = min(max(2 * k, k + 16), n)
+    keys = scan_decoded.decoded_topk_scan(rows, norms, q, kk)
+    got = scan_decoded._lowest_split_keys(keys, kk)
+    want = scan_decoded._scan_topk(rows, norms, q.float(), kk)
+    ok, detail = kernel_check.d1_check(rows, norms, q, got, want)
+    assert ok, f"D1 {name}: {detail}"
+    ms = _time_ms(lambda: scan_decoded.decoded_topk_scan(rows, norms, q, kk), 20)
+    merge = _time_ms(lambda: scan_decoded._lowest_split_keys(keys, kk), 20)
+    plain = _time_ms(lambda: scan_decoded._scan_topk(rows, norms, q.float(), kk), 3)
+    library = _time_ms(lambda: torch.topk(norms[None, :] - 2.0 * torch.mm(q, rows.T).float(),
+                                          kk, dim=1, largest=False), 5)
+    nbytes = rows.numel() * 2 + n * 4 + q.numel() * 2 + keys.numel() * 8
+    bound = _bound(nbytes, 2.0 * nq * n * d, "bf16")
+    log(f"[{tag}] D1 decoded_topk_scan n={n} d={d} nq={nq} kk={kk} "
+        f"{tuple(keys.shape)} keys: {detail}, kernel {ms:.4f} ms "
+        f"({2.0 * nq * n * d / (ms * 1e9):.0f} TFLOP/s, {100 * bound[0] / ms:.1f}% of the "
+        f"bound), the splits' merge {merge:.4f} ms, plain {plain:.3f} ms, "
+        f"bf16 mm + topk {library:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    # the error is d1_check's: the largest f64 excess, over its tolerance,
+    # of a row one side holds beyond the other side's kk-th (0 where every
+    # query holds the same ids)
+    entry = _entry(name, "vaq_tpu_torch/csrc/decoded_topk_scan.cu",
+                   "none (XLA's GEMM and approx_max_k, vaq_tpu/ops/scan_decoded.py:48-76)",
+                   detail.get("max_excess_over_tol", 0.0), ms, plain, bound, library)
+    entry["queries_differing"] = detail["queries_differing"]
+    return entry
+
+
 def _time_selection(scores: torch.Tensor, k: int) -> None:
     """The tie-exact selection (``scan_codes._select_lowest``) and each of
     its forms beside ``torch.topk`` on one (nq, width) score matrix; all
@@ -1046,6 +1101,11 @@ def phase_kernels() -> list[dict]:
         "popcount_dists_probe"))
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    kernels.append(_held_d1(gen))
+    torch.cuda.empty_cache()
+    for shape in KD1_MAIN_SHAPES:
+        kernels.append(_held_d1(gen, shape, f"decoded_topk_scan_k{shape[3]}"))
+        torch.cuda.empty_cache()
     _time_block_selection(gen)
     for d_k, dtype in ((D_MAIN, "int8"), (96, "int8"), (D_MAIN, "bf16")):
         kernels.append(_check_groupmin(gen, d_k, dtype))
@@ -1113,7 +1173,7 @@ def phase_main_path() -> tuple[dict, dict]:
     reuses (the index, its data, the groundtruth, the decoded recall)."""
     import vaq_tpu_torch as vt
     from vaq_tpu_torch import data, metrics
-    from vaq_tpu_torch.ops import distances, scan_codes
+    from vaq_tpu_torch.ops import distances, scan_codes, scan_decoded
     dev = torch.device(DEVICE)
     t0 = time.perf_counter()
     base, queries = data.make_anisotropic_gaussian(N_MAIN, D_MAIN, NQ_MAIN,
@@ -1131,6 +1191,7 @@ def phase_main_path() -> tuple[dict, dict]:
     _step("encode", lambda: idx.encode(base))
     scan_codes.decode_window_scan.launches = 0
     scan_codes.decode_rescore.launches = 0
+    scan_decoded.decoded_topk_scan.launches = 0
     _step("search decoded k=100 (first call builds the decoded db)",
           lambda: idx.search(queries, 100, backend="decoded"), NQ_MAIN)
     _, l_dec = _step("search decoded k=100",
@@ -1143,7 +1204,8 @@ def phase_main_path() -> tuple[dict, dict]:
     d_ref, l_ref = _step("refine 200->100",
                          lambda: idx.refine(queries, cand, base, 100), NQ_MAIN)
     launches = {"decode_window_scan": scan_codes.decode_window_scan.launches,
-                "decode_rescore": scan_codes.decode_rescore.launches}
+                "decode_rescore": scan_codes.decode_rescore.launches,
+                "decoded_topk_scan": scan_decoded.decoded_topk_scan.launches}
     log(f"[main] kernel launches during the main path: {launches}")
     _profile_split("main", "codes", lambda: idx.search(queries[:512], 100,
                                                      backend="codes"), ())
@@ -2542,12 +2604,14 @@ def phase_card_vs_cpu() -> None:
 def _kernel_counts(zero: bool = False) -> dict:
     """Every kernel's launch counter, by the counter names of the kernels
     line (K3 and K4 apart); with ``zero``, set them to 0 first."""
-    from vaq_tpu_torch.ops import hamming, probe_scan, rescore, scan_codes
+    from vaq_tpu_torch.ops import (hamming, probe_scan, rescore, scan_codes,
+                                   scan_decoded)
     fns = {"decode_window_scan": scan_codes.decode_window_scan,
            "decode_rescore": scan_codes.decode_rescore,
            "groupmin_window_scan": probe_scan.groupmin_window_scan,
            "gather_rescore": rescore.gather_rescore,
-           "popcount_dists": hamming.popcount_dists}
+           "popcount_dists": hamming.popcount_dists,
+           "decoded_topk_scan": scan_decoded.decoded_topk_scan}
     f4 = scan_codes.fast4_window_scan.launches
     if zero:
         for fn in fns.values():
@@ -2569,7 +2633,8 @@ def phase_kcheck(idx, queries, what: str, form: str) -> dict:
     KCHECK_NQ queries: every kernel against its plain version on the card
     (K1 at 64/32/16-row windows, K2, K3 in ``form``, K4 where the index
     learned its LUT quantization, K5 at JAX's four shapes, K7 at its three,
-    H1 xor and Jaccard); its fields logged, ``kernel_parity_ok`` required.
+    H1 xor and Jaccard, D1 at kk = 26 and 200); its fields logged,
+    ``kernel_parity_ok`` required.
     Returns the launches, counted from 0 around the call."""
     from vaq_tpu_torch.ops import kernel_check, scan_codes
     m, c = idx.centroids.shape[:2]
@@ -2586,7 +2651,7 @@ def phase_kcheck(idx, queries, what: str, form: str) -> dict:
     assert fields["kernel_parity_ok"] is True, fields
     want = {"decode_window_scan": 3, "decode_rescore": 1,
             "groupmin_window_scan": 4, "gather_rescore": 3,
-            "popcount_dists": 4,
+            "popcount_dists": 4, "decoded_topk_scan": 2,
             "fast4_window_scan_int8": int(idx.lut_offsets is not None)}
     assert {n: counts[n] for n in want} == want, counts
     assert counts["fast4_window_scan"] >= 1, counts

@@ -19,7 +19,8 @@ import vaq_tpu
 import vaq_tpu_torch
 from vaq_tpu.ops import kernel_check as jkc
 from vaq_tpu_torch.ops import kernel_check as kc
-from vaq_tpu_torch.ops import hamming, probe_scan, rescore, scan_codes
+from vaq_tpu_torch.ops import (hamming, probe_scan, rescore, scan_codes,
+                               scan_decoded)
 
 torch.set_num_threads(2)  # six test workers share the host
 
@@ -290,7 +291,63 @@ def test_gate_path_runs_every_check_on_a_cpu_index(method, quantize,
     assert list(checks) == [
         "decode_br64", "decode_br32", "decode_br16", "decode_rescore",
         "fast4"] + ["fast4_int8"] * quantize + ["groupmin", "rescore",
-                                                "popcount"]
+                                                "popcount", "decoded_topk"]
     assert all(ok for ok, _ in checks.values()), checks
     assert checks["fast4"][1]["form"] == ("mma" if quantize else "gather")
     assert checks["decode_br16"][1]["max_err_over_tol"] == 0.0
+
+
+def d1_inputs(n=3000, d=64, nq=10, seed=5):
+    rng = np.random.default_rng(seed)
+    rows = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32)
+                           ).to(torch.bfloat16)
+    norms = torch.sum(rows.float() ** 2, dim=1)
+    norms[::97] = torch.inf                  # tombstones
+    qp = torch.as_tensor(rng.standard_normal((nq, d)).astype(np.float32))
+    return rows, norms, qp
+
+
+def test_d1_gate_passes_the_plain_version_and_near_ties():
+    """D1's gate on its plain version; and on a fake kernel whose kk-th
+    candidate is swapped for a row the plain version ranks next, moved
+    within the tolerance of it (a boundary tie on the tensor cores)."""
+    rows, norms, qp = d1_inputs()
+    ok, detail = kc._parity_d1(rows, norms, qp)
+    assert ok and detail["kk26"]["queries_differing"] == 0, detail
+    q = qp.to(torch.bfloat16).contiguous()
+    want = scan_decoded._scan_topk(rows, norms, q.float(), 27)
+    s, t = kc.d1_scores64(rows, norms, q, want)
+    got = want[:, :26].clone()
+    got[0, 25] = want[0, 26]
+    # the swap is legal only if row 27 scores within tolerance of row 26
+    gap = float((s[0, 26] - s[0, 25]) / (kc.TERMS_RTOL * (t[0, 26] + t[0, 25])
+                                         + kc.ATOL))
+    ok, detail = kc.d1_check(rows, norms, q, got, want[:, :26])
+    assert detail["queries_differing"] == 1
+    assert ok == (gap <= 1.0)
+    assert detail["max_excess_over_tol"] == pytest.approx(gap)
+
+
+def test_d1_gate_rejects_a_lost_winner_and_a_tombstone():
+    """A fake D1 that drops a query's best row for its 27th, or that
+    returns a tombstoned row, fails the gate."""
+    rows, norms, qp = d1_inputs()
+    q = qp.to(torch.bfloat16).contiguous()
+    want = scan_decoded._scan_topk(rows, norms, q.float(), 27)
+
+    def lost_winner(r, nrm, qq, kk):
+        keys = scan_decoded.decoded_topk_scan(r, nrm, qq, kk)
+        if kk == 26:
+            keys = keys.clone()
+            lo = torch.sort(keys[3]).values
+            keys[3][keys[3] == lo[0]] = int(
+                (lo[0] & ~0xFFFFFFFF) | int(want[3, 26]))
+        return keys
+
+    ok, detail = kc._parity_d1(rows, norms, qp, kernel=lost_winner)
+    assert not ok and detail["kk26"]["queries_differing"] == 1
+    assert detail["kk26"]["max_excess_over_tol"] > 1.0
+    dead = want[:, :26].clone()
+    dead[1, 0] = 97                          # a tombstone (+inf norm)
+    ok, detail = kc.d1_check(rows, norms, q, dead, want[:, :26])
+    assert not ok

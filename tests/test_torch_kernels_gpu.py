@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 ``decode_window_scan``, K2
 ``decode_rescore``, K3/K4 ``fast4_window_scan``, K5 ``groupmin_window_scan``,
-K7 ``gather_rescore``, H1 ``popcount_dists``) against their plain PyTorch
+K7 ``gather_rescore``, H1 ``popcount_dists``, D1 ``decoded_topk_scan``)
+against their plain PyTorch
 versions, on a CUDA card, also on state that ``add`` grew and ``delete``
 poisoned, and the binary engine's searches on the card against the CPU.
 
@@ -27,7 +28,10 @@ terms (Σ|products| + norms, ``groupmin_term_scale``/``rescore_term_scale``);
 a score near 0 is a sum of terms of hundreds, and its last bits differ.
 H1's Hamming distances are integers and its Jaccard distances one IEEE
 division of integers: bit-equal, and the binary searches built on them
-return identical ids and distances on the card and on the CPU.
+return identical ids and distances on the card and on the CPU. D1 sums the
+same exact bf16 products as the plain blocked scan in another order, so its
+kk candidates are the plain scan's except where rows tie within 1e-5 of the
+terms summed (``kernel_check.d1_check``).
 """
 
 import numpy as np
@@ -39,7 +43,7 @@ from vaq_tpu_torch import ivf
 from vaq_tpu_torch.convert import index_from_numpy
 from vaq_tpu_torch import binary
 from vaq_tpu_torch.ops import (hamming, kernel_check, probe_scan, rescore,
-                               scan_codes)
+                               scan_codes, scan_decoded)
 from vaq_tpu_torch.ops.kernel_check import (groupmin_term_scale,
                                             rescore_term_scale)
 
@@ -631,7 +635,7 @@ def test_kernel_parity_fields_on_a_card_index(cuda, method, quantize):
     """The package's gate on a small card index: every kernel holds, and
     each check launched its kernel (K1 at 64/32/16-row windows, K2, K3, K4
     where the LUT quantization is learned, K5 at four shapes, K7 at three,
-    H1 xor and Jaccard at two)."""
+    H1 xor and Jaccard at two, D1 at kk = 26 and 200)."""
     rng = np.random.default_rng(12)
     x = (rng.standard_normal((9000, 32)) *
          np.linspace(2.0, 0.3, 32)[None, :]).astype(np.float32)
@@ -641,7 +645,7 @@ def test_kernel_parity_fields_on_a_card_index(cuda, method, quantize):
         idx.learn_quantization(x, 0.1)
     counters = (scan_codes.decode_window_scan, scan_codes.decode_rescore,
                 probe_scan.groupmin_window_scan, rescore.gather_rescore,
-                hamming.popcount_dists)
+                hamming.popcount_dists, scan_decoded.decoded_topk_scan)
     before = [f.launches for f in counters]
     fast4 = dict(scan_codes.fast4_window_scan.launches)
     got = kernel_check.kernel_parity_fields(idx, x[:128] + 0.05)
@@ -649,8 +653,219 @@ def test_kernel_parity_fields_on_a_card_index(cuda, method, quantize):
     assert got["kernel_parity_checked"] == [
         "decode_br64", "decode_br32", "decode_br16", "decode_rescore",
         "fast4"] + ["fast4_int8"] * quantize + ["groupmin", "rescore",
-                                                "popcount"]
-    assert [f.launches - b for f, b in zip(counters, before)] == [3, 1, 4, 3, 4]
+                                                "popcount", "decoded_topk"]
+    assert [f.launches - b for f, b in zip(counters, before)] == \
+        [3, 1, 4, 3, 4, 2]
     k3 = scan_codes.fast4_window_scan.launches["K3"] - fast4["K3"]
     k4 = scan_codes.fast4_window_scan.launches["K4"] - fast4["K4"]
     assert k3 >= 1 and k4 == int(quantize)
+
+
+# (case, n, d, nq, k) for D1: the benchmark cell's shape (1024 queries ×
+# 1M rows × 128, k = 10); the refine fetch's and chip_smoke's k = 100 and
+# 200; ties, −0/+0 scores, tombstones; n below 2k (kk = n), n not a multiple
+# of the 64-row tile, one query; depths 40, 96 and 128, 57 (rows not a
+# multiple of 16 bytes: the plain-load producer) and 512.
+D1_CASES = [("random", 1_000_000, 128, 1024, 10),
+            ("random", 1_000_000, 128, 1024, 100),
+            ("random", 300_000, 128, 512, 200),
+            ("random", 100_003, 96, 1000, 10),
+            ("ties", 50_000, 128, 300, 10),
+            ("zeros", 20_000, 40, 64, 10),
+            ("tombstones", 10_000, 96, 70, 10),
+            ("random", 20, 40, 3, 10),
+            ("random", 777, 40, 1, 10),
+            ("random", 5_000, 57, 100, 10),
+            ("random", 30_000, 512, 200, 50)]
+
+
+def d1_inputs(case, n, d, nq, device, seed=21):
+    """bf16 rows with f32 norms and projected f32 queries on ``device``:
+    ``random`` (unit normal); the others small integers, so every product
+    and sum is exact and the kernel's scores equal the plain version's:
+    ``ties`` (each row 8 times, and equal scores at every rank); ``zeros``
+    (every fifth row zero, its norm −0 or +0 in turn); ``tombstones``
+    (every third row's norm +inf)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if case == "random":
+        x = torch.randn((n, d), generator=gen, device=device)
+        qp = torch.randn((nq, d), generator=gen, device=device)
+    else:
+        x = torch.randint(-3, 4, (n, d), generator=gen, device=device).float()
+        qp = torch.randint(-3, 4, (nq, d), generator=gen,
+                           device=device).float()
+    if case == "ties":
+        x = x[torch.arange(n, device=device) // 8]
+    if case == "zeros":
+        x[::5] = 0.0
+    rows = x.to(torch.bfloat16)
+    norms = torch.sum(rows.float() ** 2, dim=1)
+    if case == "zeros":
+        norms[::5] = torch.where(torch.arange(0, n, 5, device=device) % 2 == 0,
+                                 -0.0, 0.0)
+    if case == "tombstones":
+        norms[::3] = torch.inf
+    return rows, norms, qp
+
+
+def assert_final_match(d_a, i_a, d_b, i_b, rtol=1e-5):
+    """Two exact rescores' top-k agree: distances within ``rtol``, ids as
+    sets among entries strictly inside the k-th distance, −1 as often."""
+    d_a, d_b = d_a.double().cpu(), d_b.double().cpu()
+    i_a, i_b = i_a.cpu(), i_b.cpu()
+    fin = torch.isfinite(d_b)
+    assert torch.equal(torch.isfinite(d_a), fin)
+    close = (d_a - d_b).abs() <= rtol * d_b.abs().clamp_min(1.0)
+    assert bool(close[fin].all())
+    for q in range(d_b.shape[0]):
+        if not bool(fin[q].any()):
+            continue
+        edge = float(d_b[q][fin[q]].max())
+        inside = d_b[q] < edge - rtol * max(abs(edge), 1.0)
+        assert set(i_a[q][inside].tolist()) == set(i_b[q][inside].tolist()), q
+        assert int((i_a[q] == -1).sum()) == int((i_b[q] == -1).sum()), q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", D1_CASES)
+def test_decoded_topk_scan_kernel_matches_plain(cuda, case):
+    """D1's merged candidates against the plain blocked scan on the card
+    (``kernel_check.d1_check``), then the whole decoded tier: D1's path
+    (one launch) against the plain scan with the same exact rescore."""
+    kind, n, d, nq, k = case
+    rows, norms, qp = d1_inputs(kind, n, d, nq, cuda)
+    kk = min(max(2 * k, k + 16), n)
+    q = qp.to(torch.bfloat16).contiguous()
+    before = scan_decoded.decoded_topk_scan.launches
+    keys = scan_decoded.decoded_topk_scan(rows, norms, q, kk)
+    got = scan_decoded._lowest_split_keys(keys, kk)
+    torch.cuda.synchronize()
+    assert scan_decoded.decoded_topk_scan.launches == before + 1
+    want = scan_decoded._scan_topk(rows, norms, q.float(), kk)
+    ok, detail = kernel_check.d1_check(rows, norms, q, got, want)
+    assert ok, detail
+    if kind != "random":
+        # integer data: every order of the sums gives the same value
+        assert detail["queries_differing"] == 0 and detail["same_order"], \
+            detail
+    d_g, i_g = scan_decoded.decoded_scan_topk(rows, norms, qp, k)
+    assert scan_decoded.decoded_topk_scan.launches == before + 2
+    d_p, i_p = scan_decoded._rescore_exact(qp, rows, want, k)
+    if kk < k:
+        i_p = torch.nn.functional.pad(i_p, (0, k - kk), value=-1)
+    assert_final_match(d_g, i_g, d_p, i_p)
+
+
+@pytest.mark.gpu
+def test_decoded_topk_scan_kernel_on_an_index_after_delete(cuda):
+    """The index's decoded tier on the card after ``delete``: D1 serves
+    ``search(backend="decoded")`` and ``"auto"``, never returns a deleted
+    row, and agrees with the CPU's plain scan on the same state."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((20_000, 64)).astype(np.float32) * \
+        np.linspace(2.0, 0.3, 64, dtype=np.float32)
+    idx = vaq_tpu_torch.VAQIndex(
+        vaq_tpu_torch.parse_method_string("VAQ128m16min6max8var1,HEAP"),
+        device=cuda).build(x)
+    dead = np.arange(0, 20_000, 3)
+    idx.delete(dead)
+    cpu = index_from_numpy(*idx.state(), "cpu")
+    before = scan_decoded.decoded_topk_scan.launches
+    d_g, i_g = idx.search(x[:300] + 0.05, 10, backend="decoded")
+    d_a, i_a = idx.search(x[:300] + 0.05, 10)
+    assert scan_decoded.decoded_topk_scan.launches >= before + 2
+    d_c, i_c = cpu.search(x[:300] + 0.05, 10, backend="decoded")
+    assert not np.isin(i_g, dead).any()
+    np.testing.assert_array_equal(i_a, i_g)
+    assert_final_match(torch.as_tensor(d_g), torch.as_tensor(i_g),
+                       torch.as_tensor(d_c), torch.as_tensor(i_c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_decoded_topk_scan_kernel_in_the_sharded_tier(cuda, n_shards):
+    """The sharded decoded tier on shards of one card launches D1 once a
+    shard and agrees with the same sharded search on the CPU (the plain
+    scan)."""
+    from vaq_tpu_torch import parallel
+    from vaq_tpu_torch.parallel import dist_kmeans
+    from vaq_tpu_torch.parallel.mesh import make_mesh
+    rows, norms, qp = d1_inputs("random", 200_001, 128, 256, cuda)
+    norms[::11] = torch.inf
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = make_mesh(devices=[dev] * n_shards)
+        before = scan_decoded.decoded_topk_scan.launches
+        out[dev.type] = parallel.sharded_decoded_search(
+            parallel.shard_codes(rows.to(dev), mesh),
+            dist_kmeans.shard_rows_for(mesh, norms.to(dev)), qp.to(dev), 10,
+            rows.shape[0], mesh)
+        launched = scan_decoded.decoded_topk_scan.launches - before
+        assert launched == (n_shards if dev.type == "cuda" else 0)
+    (d_g, i_g), (d_c, i_c) = out["cuda"], out["cpu"]
+    assert not bool((i_g.cpu() % 11 == 0).any())
+    assert_final_match(d_g, i_g, d_c, i_c)
+
+
+@pytest.mark.gpu
+def test_decoded_tier_on_the_card_runs_d1_alone(cuda, tmp_path, monkeypatch):
+    """On a CUDA bf16 tier, ``decoded_scan_topk`` launches D1 once and
+    reaches no ``torch.topk``, no ``lowest_over_blocks`` and no host sync;
+    ``decoded.kept`` counts D1's inserts only while a profiler records, and
+    its spans hold D1 (``decoded.scores``) inside ``decoded.scan``."""
+    from vaq_tpu_torch import profiling
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain blocked scan ran on the card")
+
+    monkeypatch.setattr(scan_decoded, "lowest_over_blocks", refuse)
+    rows, norms, qp = d1_inputs("random", 50_000, 128, 64, cuda)
+    profiling.reset_counters()
+    scan_decoded.decoded_scan_topk(rows, norms, qp, 10)
+    assert "decoded.kept" not in profiling.counters()
+    before = scan_decoded.decoded_topk_scan.launches
+    with profiling.device_trace(str(tmp_path)) as prof:
+        scan_decoded.decoded_scan_topk(rows, norms, qp, 10)
+    assert scan_decoded.decoded_topk_scan.launches == before + 1
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    scan = [e for e in cpu if e.name == "decoded.scan"]
+    assert len(scan) == 1, [e.name for e in cpu]
+    lo, hi = scan[0].time_range.start, scan[0].time_range.end
+    inside = {e.name for e in cpu
+              if lo <= e.time_range.start and e.time_range.end <= hi}
+    assert "decoded.scores" in inside, inside
+    assert not inside & {"aten::topk", "aten::item",
+                         "aten::_local_scalar_dense", "cudaStreamSynchronize",
+                         "cudaDeviceSynchronize"}, inside
+    kept = profiling.counters()["decoded.kept"]
+    assert 64 * 26 <= kept <= 64 * 50_000, kept
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,d,kk", [(1024, 128, 26), (1000, 128, 200),
+                                     (1000, 128, 400), (64, 40, 512)])
+def test_decoded_topk_scan_entry_refuses_smem_below_its_layout(cuda, nq, d,
+                                                               kk):
+    """The geometry's ``smem`` is exactly the kernel's own layout: D1's C
+    entry launches with it and refuses one byte less, before any launch."""
+    from vaq_tpu_torch import _build
+    n = 4096
+    rows, norms, qp = d1_inputs("random", n, d, nq, cuda)
+    q = qp.to(torch.bfloat16).contiguous()
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    geo = scan_decoded._d1_geometry(nq, n, d, kk, n_sm)
+    lib = _build.library()
+    errs = []
+    for smem in (geo.smem - 1, geo.smem):
+        cand = torch.empty((nq, geo.splits * kk), dtype=torch.int64,
+                           device=cuda)
+        bound = torch.full((nq * (1 + geo.splits),), scan_decoded._EMPTY_KEY,
+                           dtype=torch.int64, device=cuda)
+        errs.append(lib.vaq_decoded_topk_scan(
+            rows.data_ptr(), n, d, norms.data_ptr(), q.data_ptr(), nq, kk,
+            geo.mt, geo.warps, geo.stages, geo.splits, smem,
+            cand.data_ptr(), bound.data_ptr(), None,
+            torch.cuda.current_stream(cuda).cuda_stream))
+    torch.cuda.synchronize()
+    assert errs[0] != 0 and errs[1] == 0, errs

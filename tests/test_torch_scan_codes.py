@@ -226,4 +226,4 @@ def test_library_path_follows_the_sources(monkeypatch, tmp_path):
     assert {p.name for p in _build.sources()} == {
         "decode_window_scan.cu", "decode_rescore.cu",
         "groupmin_window_scan.cu", "gather_rescore.cu",
-        "fast4_window_scan.cu", "hamming_scan.cu"}
+        "fast4_window_scan.cu", "hamming_scan.cu", "decoded_topk_scan.cu"}

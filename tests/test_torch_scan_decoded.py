@@ -221,3 +221,165 @@ def test_decoded8_scan_topk_matches_jax_exact(seed, k, dead, monkeypatch):
     if dead:
         assert not np.isin(i_t.numpy(), gone).any()
     assert_topk_match(d_t, i_t, d_j, i_j, rtol=1e-6)
+
+
+# --- D1 (``decoded_topk_scan``): its partition and merge on the CPU --------
+
+def _d1_rows(case, n, d, nq, seed=11):
+    """bf16 rows, f32 norms and bf16 queries for a D1 case: ``random``;
+    ``ties`` (each row repeated three times, so equal scores abound);
+    ``zeros`` (every fifth row zero, its norm −0 or +0 in turn, so −0 and +0
+    scores meet at the top); ``tombstones`` (+inf norms on all but 5 rows,
+    so the kk lowest hold tombstones)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    if case == "ties":
+        x = np.repeat(x[:-(-n // 3)], 3, axis=0)[:n]
+    if case == "zeros":
+        x[::5] = 0.0
+    rows = torch.as_tensor(x).to(torch.bfloat16)
+    norms = torch.sum(rows.float() ** 2, dim=1)
+    if case == "zeros":
+        sign = torch.where(torch.arange(0, n, 5) % 2 == 0, -0.0, 0.0)
+        norms[::5] = sign
+    if case == "tombstones":
+        norms[5:] = torch.inf
+    q = torch.as_tensor(rng.standard_normal((nq, d)).astype(np.float32))
+    if case == "zeros":
+        q = q * 1e-3      # zero rows score best
+    return rows, norms, q.to(torch.bfloat16)
+
+
+D1_CASES = [  # (case, n, d, nq, kk, splits, block_rows)
+    ("random", 3000, 128, 7, 26, 33, 1000),
+    ("random", 1000, 96, 5, 40, 3, 65536),    # n not a multiple of 64
+    ("random", 777, 40, 1, 26, 132, 300),     # nq = 1, more splits than tiles
+    ("random", 20, 40, 3, 20, 4, 65536),      # n < 2k: kk = n
+    ("ties", 2000, 128, 6, 36, 7, 500),
+    ("ties", 130, 96, 2, 130, 2, 65536),
+    ("zeros", 1500, 40, 4, 26, 5, 700),
+    ("zeros", 900, 128, 3, 200, 11, 65536),
+    ("tombstones", 640, 96, 4, 26, 3, 200),
+    ("tombstones", 64, 128, 2, 60, 1, 65536),
+]
+
+
+@pytest.mark.parametrize("case,n,d,nq,kk,splits,block_rows", D1_CASES)
+def test_d1_partition_and_merge_equal_plain_scan(case, n, d, nq, kk, splits,
+                                                 block_rows, monkeypatch):
+    """D1's plain version (each split's kk lowest keys, then one sort)
+    returns ``_scan_topk``'s ids, id for id and in order: ties to the lower
+    id, −0 before +0, −1 for tombstones in the kk lowest."""
+    monkeypatch.setattr(scan_decoded, "BLOCK_ROWS", block_rows)
+    rows, norms, q = _d1_rows(case, n, d, nq)
+    want = scan_decoded._scan_topk(rows, norms, q.float(), kk)
+    keys = scan_decoded.decoded_topk_scan_ref(rows, norms, q, kk, splits)
+    assert keys.shape == (nq, splits * kk) and keys.dtype == torch.int64
+    got = scan_decoded._lowest_split_keys(keys, kk)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+    if case == "tombstones":
+        assert (got[:, 5:] == -1).all() and (got[:, :5] >= 0).all()
+    if case == "zeros":
+        top = got[:, 0].tolist()
+        assert all(i % 5 == 0 and (i // 5) % 2 == 0 for i in top)  # a −0 row
+
+
+def test_d1_splits_keep_their_own_lowest_keys():
+    """Each split holds the kk lowest keys of its own tiles (64-row tile t
+    to split t mod S), ascending, and the empty key past its rows: at 300
+    rows and 4 splits, split 0 holds tiles 0 and 4 (108 rows), split 3 only
+    tile 3 (64 rows, 6 short of kk = 70)."""
+    rows, norms, q = _d1_rows("random", 300, 40, 2)
+    keys = scan_decoded.decoded_topk_scan_ref(rows, norms, q, 70, 4)
+    scores = norms[None, :] - 2.0 * (q.float() @ rows.float().T)
+    all_keys = scan_decoded._keys(scores, 0)
+    tile_split = (torch.arange(300) // 64) % 4
+    for s in range(4):
+        mine = torch.sort(all_keys[:, tile_split == s], dim=1).values[:, :70]
+        got = keys.reshape(2, 4, 70)[:, s]
+        assert torch.equal(got[:, :mine.shape[1]], mine)
+        assert (got[:, mine.shape[1]:] == scan_decoded._EMPTY_KEY).all()
+    assert (keys.reshape(2, 4, 70)[:, 3] == scan_decoded._EMPTY_KEY).sum(
+        dim=1).tolist() == [6, 6]
+
+
+def test_d1_wrapper_on_cpu_is_its_plain_version_and_path_is_plain():
+    """On a CPU tensor the wrapper returns its plain version at the H100's
+    split, and ``decoded_scan_topk`` keeps the plain blocked scan."""
+    rows, norms, q = _d1_rows("random", 2000, 96, 9)
+    geo = scan_decoded._d1_geometry(9, 2000, 96, 26, 132)
+    keys = scan_decoded.decoded_topk_scan(rows, norms, q, 26)
+    assert torch.equal(keys, scan_decoded.decoded_topk_scan_ref(
+        rows, norms, q, 26, geo.splits))
+    assert not scan_decoded._d1_takes(rows, 26)
+    before = scan_decoded.decoded_topk_scan.launches
+    scan_decoded.decoded_scan_topk(rows, norms, q.float(), 5)
+    assert scan_decoded.decoded_topk_scan.launches == before
+
+
+@pytest.mark.parametrize("bad", ["rows_dtype", "q_dtype", "norms_dtype",
+                                 "rows_ndim", "q_depth", "norms_len",
+                                 "rows_strided", "q_strided", "device",
+                                 "kk_zero", "kk_above_n", "kk_above_max",
+                                 "too_deep"])
+def test_d1_wrapper_rejects_what_it_does_not_take(bad):
+    rows, norms, q = _d1_rows("random", 600, 32, 3)
+    kk = 26
+    if bad == "rows_dtype":
+        rows = rows.float()
+    elif bad == "q_dtype":
+        q = q.float()
+    elif bad == "norms_dtype":
+        norms = norms.double()
+    elif bad == "rows_ndim":
+        rows = rows[None]
+    elif bad == "q_depth":
+        q = q[:, :16].contiguous()
+    elif bad == "norms_len":
+        norms = norms[:-1]
+    elif bad == "rows_strided":
+        rows = torch.cat([rows, rows], dim=1)[:, ::2]
+    elif bad == "q_strided":
+        q = torch.cat([q, q], dim=1)[:, ::2]
+    elif bad == "device":
+        norms = norms.to("meta")
+    elif bad == "kk_zero":
+        kk = 0
+    elif bad == "kk_above_n":
+        rows, norms, q = _d1_rows("random", 20, 32, 3)
+        kk = 21
+    elif bad == "kk_above_max":
+        kk = scan_decoded.D1_MAX_KK + 1
+    elif bad == "too_deep":
+        d = scan_decoded.D1_MAX_DEPTH + 8
+        rows, norms, q = _d1_rows("random", 100, d, 2)
+    with pytest.raises(ValueError):
+        scan_decoded.decoded_topk_scan(rows, norms, q, kk)
+
+
+@pytest.mark.parametrize("d", [40, 96, 128, 512, 960])
+@pytest.mark.parametrize("kk", [1, 26, 200, 400, 512])
+@pytest.mark.parametrize("nq", [1, 100, 1024])
+def test_d1_geometry_fits_a_block(d, kk, nq):
+    """Every kk up to D1_MAX_KK at every depth up to D1_MAX_DEPTH fits one
+    block's shared memory: the queries, heaps, staged keys and their counts
+    of its warps
+    and a ring of at least one 64-row stage; the grid covers the batch and
+    fills the card at most once."""
+    geo = scan_decoded._d1_geometry(nq, 10**6, d, kk, 132)
+    row = 2 * (-(-d // 16) * 16 + 8)
+    qw = 16 * geo.mt
+    assert geo.smem == 128 + geo.stages * 64 * row + geo.warps * qw * (
+        row + 8 * kk + 132)
+    assert geo.smem <= scan_decoded._SMEM_LIMIT
+    assert 1 <= geo.stages <= 4 and 1 <= geo.warps <= 8
+    assert geo.groups * geo.warps * qw >= nq
+    assert geo.groups * geo.splits <= max(132, geo.groups)
+
+
+def test_d1_geometry_at_the_benchmark_shape():
+    """1024 queries × 1M rows × 128 at k = 10 (kk = 26): eight 32-query
+    warps, four stages, 4 query groups × 33 row splits on 132 SMs."""
+    assert scan_decoded._d1_geometry(1024, 10**6, 128, 26, 132) == \
+        scan_decoded.D1Geometry(2, 8, 4, 4, 33, 226432)

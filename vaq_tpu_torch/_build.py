@@ -48,6 +48,10 @@ _SIGNATURES = {
                               _P, _I, _P, _P),
     # q, x, b, nq, n, ld, lo, w, jaccard, out, stream
     "vaq_popcount_dists": (_P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P),
+    # rows, n, d, norms, q, nq, kk, mt, warps, stages, splits, smem, cand,
+    # bound, kept, stream
+    "vaq_decoded_topk_scan": (_P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P),
 }
 
 

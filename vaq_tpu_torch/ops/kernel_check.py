@@ -23,7 +23,9 @@ live index and at JAX's shapes:
 - K7 ``gather_rescore`` at JAX's three gather-rescore shapes; the d = 96
   one is the port's K8;
 - H1 ``popcount_dists``, xor and Jaccard, on seeded packed words (JAX has
-  no kernel there: its popcount is plain XLA).
+  no kernel there: its popcount is plain XLA);
+- D1 ``decoded_topk_scan`` on those codes decoded to bf16 rows, at the
+  over-fetch of k = 10 and of k = 100 (JAX leaves the tier to XLA).
 
 Tolerances. Where they differ from JAX's, the reason is the port's kernels,
 not a looser gate:
@@ -52,6 +54,10 @@ not a looser gate:
 - K7: JAX's 2e-4 relative to max(|plain|, 1); and the two within 1e-5 of
   the terms summed (:func:`rescore_term_scale`).
 - H1: bit-equal (integer counts, and one IEEE division for Jaccard).
+- D1: its scores are the plain version's up to the order of the f32 sums
+  of exact bf16 products, so its kk candidates are the plain version's
+  except where rows tie within 1e-5 of the size of the terms summed,
+  ‖x‖² + 2·Σ|q·x| (:func:`d1_check`).
 
 ``tests/test_torch_kernels_gpu.py`` holds the kernels to the same rules
 through these functions. A kernel that does not build or launch raises
@@ -67,7 +73,8 @@ import numpy as np
 import torch
 
 from vaq_tpu_torch import pca
-from vaq_tpu_torch.ops import hamming, probe_scan, rescore, scan_codes, scan_lut
+from vaq_tpu_torch.ops import (hamming, probe_scan, rescore, scan_codes,
+                               scan_decoded, scan_lut)
 
 # The comparison's absolute floor: scores below it are equal.
 ATOL = 1e-6
@@ -90,6 +97,8 @@ RESCORE_SHAPES = {
     "gs64_bf16": (8, 20, 64, 128, 32, "bf16"),
     "t96_int8": (8, 6, 128, 96, 12, "int8"),
 }
+# D1's over-fetches: the kk of k = 10 and of k = 100.
+D1_KKS = (26, 200)
 # H1's shapes: (batches, queries, rows, words): the flat scan of a 256-bit
 # code over 65,536 rows, and a probe's four cluster blocks.
 POPCOUNT_SHAPES = {"flat": (1, 128, 65536, 8), "blocks": (4, 64, 4000, 8)}
@@ -231,6 +240,66 @@ def k1_check(codes, table, qp, got, want, block_rows: int,
     return _windows_agree(
         got, want, k1_rtol(block_rows),
         lambda q, rows: k1_scores64(codes, table, qp, q, rows), size)
+
+
+def d1_scores64(rows, norms, q, ids, q_block: int = 64
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f64 ``‖x‖² − 2·q·x`` of each query's rows ``ids`` (nq, kk) and the
+    size of the terms it sums, ``‖x‖² + 2·Σ|q·x|``; +inf and 0 at id −1
+    and at a tombstoned row (+inf norm).
+    rows (n, d) bf16, norms (n,) f32, q (nq, d) bf16."""
+    ids = _t(ids, rows.device).to(torch.int64)
+    score = torch.empty(ids.shape, dtype=torch.float64, device=rows.device)
+    terms = torch.empty_like(score)
+    for a in range(0, ids.shape[0], q_block):
+        sel = ids[a:a + q_block]
+        safe = sel.clamp_min(0)
+        prod = q[a:a + q_block, None, :].double() * rows[safe].double()
+        nrm = norms[safe].double()
+        live = (sel >= 0) & torch.isfinite(nrm)
+        score[a:a + q_block] = torch.where(live, nrm - 2.0 * prod.sum(2),
+                                           torch.inf)
+        terms[a:a + q_block] = torch.where(
+            live, nrm.abs() + 2.0 * prod.abs().sum(2), 0.0)
+    return score, terms
+
+
+def d1_check(rows, norms, q, got, want) -> Check:
+    """D1's merged candidates ``got`` against the plain version's ``want``
+    (each (nq, kk) row ids, −1 for none): the same ids where the sets
+    agree; elsewhere every row only one side holds scores, in f64, within
+    1e-5 of the terms (plus ``ATOL``) of the other side's kk-th, so only
+    rows that tie at the boundary trade places, and −1 (a tombstone or too
+    few rows) as often on both sides."""
+    got, want = _t(got, rows.device), _t(want, rows.device)
+    if got.shape != want.shape:
+        return False, {"shape": [list(got.shape), list(want.shape)]}
+    same = torch.equal(got, want)
+    differ = ~(torch.sort(got, dim=1).values
+               == torch.sort(want, dim=1).values).all(dim=1)
+    detail = {"queries_differing": int(differ.sum()), "same_order": same}
+    if not bool(differ.any()):
+        return True, detail
+    g, w = got[differ], want[differ]
+    sg, tg = d1_scores64(rows, norms, q[differ], g)
+    sw, tw = d1_scores64(rows, norms, q[differ], w)
+    worst = 0.0
+    for sa, ta, a, sb, tb, b in ((sg, tg, g, sw, tw, w),
+                                 (sw, tw, w, sg, tg, g)):
+        # the rows of `a` that `b` lacks, against b's kk-th
+        last, at = torch.where(b >= 0, sb, -torch.inf).max(dim=1)
+        t_last = tb.gather(1, at[:, None])
+        only = ~(a[:, :, None] == b[:, None, :]).any(dim=2)
+        excess = torch.nan_to_num(
+            (sa - last[:, None]) / (TERMS_RTOL * (ta + t_last) + ATOL),
+            nan=torch.inf)
+        if bool(only.any()):
+            worst = max(worst, float(excess[only].max()))
+    detail["max_excess_over_tol"] = worst
+    dead = bool(((g < 0).sum(1) == (w < 0).sum(1)).all())
+    if not dead:
+        detail["dead_count_mismatch"] = True
+    return worst <= 1.0 and dead, detail
 
 
 def k3_sums64(codes, luts, q_idx, rows) -> torch.Tensor:
@@ -482,6 +551,23 @@ def _parity_popcount(device, kernel: Callable = hamming.popcount_dists,
     return not detail, detail
 
 
+def _parity_d1(rows, norms, qp, kks=D1_KKS,
+               kernel: Callable = scan_decoded.decoded_topk_scan) -> Check:
+    """D1 (``kernel``) at each of ``kks``, its splits merged, against the
+    plain blocked scan (``scan_decoded._scan_topk``) on the same rows and
+    bf16 queries, by :func:`d1_check`."""
+    q = qp.to(torch.bfloat16).contiguous()
+    ok_all, detail = True, {}
+    for kk in kks:
+        kk = min(kk, rows.shape[0])
+        got = scan_decoded._lowest_split_keys(kernel(rows, norms, q, kk), kk)
+        want = scan_decoded._scan_topk(rows, norms, q.float(), kk)
+        ok, d = d1_check(rows, norms, q, got, want)
+        ok_all &= ok
+        detail[f"kk{kk}"] = d
+    return ok_all, detail
+
+
 # ---------------------------------------------------------------------------
 # The gate
 # ---------------------------------------------------------------------------
@@ -524,6 +610,9 @@ def _checks(idx, queries: np.ndarray, n_rows: int, nq: int) -> dict:
     checks["groupmin"] = _parity_groupmin(dev)
     checks["rescore"] = _parity_gather_rescore(dev)
     checks["popcount"] = _parity_popcount(dev)
+    dec, norms = scan_decoded.decode_db(
+        codes, torch.as_tensor(idx.centroids, device=dev))
+    checks["decoded_topk"] = _parity_d1(dec, norms, qp)
     return checks
 
 
@@ -532,7 +621,8 @@ def kernel_parity_fields(idx, queries: np.ndarray, n_rows: int = 65536,
     """Every kernel against its plain version on the index's card: K1 at
     64-, 32- and 16-row windows, K2 and K3 on the index's first ``n_rows``
     codes and ``nq`` projected queries, K4 there too where the index has
-    learned its LUT quantization, K5, K7 and H1 at their seeded shapes.
+    learned its LUT quantization, K5, K7 and H1 at their seeded shapes, D1
+    on those codes' bf16 rows at kk = 26 and 200.
 
     Returns bench-JSON fields: ``kernel_parity_ok`` (bool),
     ``kernel_parity_checked`` (the checks run, in order) and a
