@@ -203,7 +203,12 @@ as it goes:
    full DEEP-100M size, 100M × 96, ``VAQ256m32min5max8var1``, 1024 queries,
    k = 10: rows generated on the card, train, streamed encode, exact
    groundtruth@100, the codes tier (K1/K2's counters zeroed before, read
-   after), the int8 tier, refine 100 and 500 → 10, the streamed probe build
+   after), the bf16 tier through ``search(backend="auto")`` (D1's counter
+   zeroed before, read after) and D1 alone held against the plain scan on
+   that tier by ``kernel_check.d1_check`` and timed beside its bound (the
+   ``decoded_topk_scan_100m`` entry: 1024 queries × 100M × 96 at kk = 26,
+   rows past 2^31 bytes; the tier released after), the int8 tier, refine
+   100 and 500 → 10, the streamed probe build
    (1000 clusters, capacity 102,400, gs = 256) with the codes and the int8
    tier resident, and visit 0.25 / 0.10 / 0.05 (K5/K7's counters zeroed
    before the sweep, read after), each stage's wall, QPS, recall and peak
@@ -2734,9 +2739,10 @@ def phase_bench() -> tuple[dict, dict]:
 
 def phase_deep100m() -> tuple[dict, list[dict]]:
     """DEEP-100M through ``scripts/capacity_100m_torch.py``'s ``run()``;
-    returns the launches of K1/K2 (counted over the codes tier) and K5/K7
-    (over the visit sweep), and the entries of those kernels held against
-    their plain versions on the path's own resident data."""
+    returns the launches of K1/K2 (counted over the codes tier), D1 (over
+    the ``auto`` tier) and K5/K7 (over the visit sweep), and the entries of
+    those kernels held against their plain versions on the path's own
+    data (D1's by ``run()`` itself, on the bf16 tier it then released)."""
     from vaq_tpu_torch import ivf
     capacity = _script("capacity_100m_torch")
     t0 = time.perf_counter()
@@ -2776,18 +2782,47 @@ def phase_deep100m() -> tuple[dict, list[dict]]:
     assert all(0.0 < r <= 1.0 for r in rec.values()), rec
     assert rec["ivf_visit0.25"] >= rec["ivf_visit0.05"], rec
     assert rec["refine500"] >= rec["refine100"] >= rec["decoded8"], rec
+    d1_entry = _deep100m_d1_entry(st["d1"], idx.codes.shape[0], qp.shape[0])
     # every structure still resident; one visit-0.1 batch split by stage
     _profile_split("deep100m", f"visit 0.1, {qp.shape[0]} queries",
                    lambda: ivf.IVFSearcher(state, 0.10).search(idx, qp, DEEP_K),
                    ("ivf.probe", "ivf.groupmin", "ivf.merge", "ivf.rescore",
                     "ivf.second_stage"), reps=5)
-    entries = _check_deep100m_kernels(idx, state, qp)
+    entries = [d1_entry] + _check_deep100m_kernels(idx, state, qp)
     return ({"decode_window_scan_100m": launches["decode_window_scan"],
              "decode_rescore_100m": launches["decode_rescore"],
+             "decoded_topk_scan_100m": launches["decoded_topk_scan"],
              f"groupmin_window_scan_d{DEEP_D}_gs{KD_GS}":
                  launches["groupmin_window_scan"],
              f"gather_rescore_d{DEEP_D}_gs{KD_GS}": launches["gather_rescore"]},
             entries)
+
+
+def _deep100m_d1_entry(held: dict, n: int, nq: int) -> dict:
+    """The kernels entry of D1 on the 100M path's bf16 tier from ``run()``'s
+    ``d1`` stage: its check must hold and have found rows past 2^31 bytes;
+    timed beside its bound (the products at the bf16 peak, or the rows,
+    norms and queries read, whichever is longer) and the plain scan. No
+    library time: a bf16 ``torch.mm`` of 1024 × 100M needs a 205 GB
+    output."""
+    detail = held["d1_detail"]
+    assert held["d1_check"], f"D1 at 100M: {detail}"
+    assert held["rows_past_2_31_bytes"] > 0, held
+    kk = held["kk"]
+    ops = 2.0 * nq * n * DEEP_D
+    bound = _bound(n * DEEP_D * 2 + n * 4 + nq * DEEP_D * 2, ops, "bf16")
+    log(f"[deep100m] D1 decoded_topk_scan n={n} d={DEEP_D} nq={nq} kk={kk} "
+        f"on the bf16 tier: {detail}, {held['rows_past_2_31_bytes']} "
+        f"candidates past 2^31 bytes, kernel {held['d1_ms']:.3f} ms "
+        f"({100 * bound[0] / held['d1_ms']:.1f}% of the bound), plain "
+        f"{held['plain_ms']:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    entry = _entry("decoded_topk_scan_100m",
+                   "vaq_tpu_torch/csrc/decoded_topk_scan.cu",
+                   "none (XLA's GEMM and approx_max_k, vaq_tpu/ops/scan_decoded.py:48-76)",
+                   detail.get("max_excess_over_tol", 0.0), held["d1_ms"],
+                   held["plain_ms"], bound, None)
+    entry["queries_differing"] = detail["queries_differing"]
+    return entry
 
 
 def _check_deep100m_kernels(idx, state, qp) -> list[dict]:

@@ -19,10 +19,17 @@ the JAX package's ``scripts/capacity_100m.py``, importing only
 3. exact groundtruth@100 streamed over the chunks
    (``distances.exact_search_chunked``);
 4. the codes tier (``search_device(backend="codes")``, kernels K1/K2);
-5. the int8 tier (``decoded8``, 96 B a row + f32 norms, 10 GB), then its
+5. the bf16 tier (192 B a row + f32 norms, 19.6 GB) through the public
+   ``search(backend="auto")``, host arrays in and out (kernel D1), then D1
+   alone held against the plain scan of that tier on the first batch
+   (``kernel_check.d1_check``; the candidates whose row starts 2^31 bytes
+   or more into the tier counted) and, on a card, timed by CUDA events
+   beside the plain scan; the tier is then released, so the probe's
+   second stage does not run (it runs only while the tier is resident);
+6. the int8 tier (``decoded8``, 96 B a row + f32 norms, 10 GB), then its
    candidates refined exactly, 100 and 500 → k, against the regenerated
    chunks (``distances.exact_rescore_chunked``);
-6. ``ivf.build_ivf_streamed`` (1000 clusters, capacity factor 1.0: 102,400
+7. ``ivf.build_ivf_streamed`` (1000 clusters, capacity factor 1.0: 102,400
    slots a cluster, 9.8 GB of int8 rows) with the codes and the int8 tier
    left resident, then the visit sweep through ``ivf.IVFSearcher``
    (kernels K5/K7).
@@ -56,8 +63,8 @@ import vaq_tpu_torch as vt  # noqa: E402
 from vaq_tpu_torch import io, ivf, metrics, pca  # noqa: E402
 from vaq_tpu_torch.data import DeviceChunkSource  # noqa: E402
 from vaq_tpu_torch.device import resolve  # noqa: E402
-from vaq_tpu_torch.ops import (distances, probe_scan, rescore,  # noqa: E402
-                               scan_codes)
+from vaq_tpu_torch.ops import (distances, kernel_check,  # noqa: E402
+                               probe_scan, rescore, scan_codes, scan_decoded)
 
 GT_DEPTH = 100
 
@@ -114,7 +121,8 @@ def run(n: int = 100_000_000, d: int = 96, queries: int = 1024, k: int = 10,
                 sync()
                 walls.append(time.perf_counter() - t0)
             labels = [out[1]] + [search(qb)[1] for qb in q_batches[1:]]
-            labels = torch.cat(labels).cpu().numpy()
+            labels = torch.cat([torch.as_tensor(lab) for lab in labels])
+            labels = labels.cpu().numpy()
             return float(np.median(walls)), labels
 
         med, labels = stage(name, go)
@@ -125,10 +133,44 @@ def run(n: int = 100_000_000, d: int = 96, queries: int = 1024, k: int = 10,
             f"{rec['recall_at_k']:.4f}")
         return labels
 
+    def events_ms(fn, reps: int) -> float:
+        """Mean milliseconds a call over ``reps`` calls, by CUDA events."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / reps
+
+    def d1_held():
+        """D1 alone against the plain scan of the bf16 tier, first batch."""
+        rows, norms = idx.decoded, idx.decoded_norms
+        q = pca.project(q_batches[0], idx._eigvecs_device())
+        q = q.to(torch.bfloat16).contiguous()
+        kk = min(max(2 * k, k + 16), n)
+
+        def d1():
+            return scan_decoded.decoded_topk_scan(rows, norms, q, kk)
+
+        def plain():
+            return scan_decoded._scan_topk(rows, norms, q.float(), kk)
+
+        got = scan_decoded._lowest_split_keys(d1(), kk)
+        ok, detail = kernel_check.d1_check(rows, norms, q, got, plain())
+        rec = {"kk": kk, "d1_check": ok, "d1_detail": detail,
+               "rows_past_2_31_bytes": int(
+                   (got.to(torch.int64) * 2 * rows.shape[1] >= 2**31).sum())}
+        if cuda:
+            rec.update(d1_ms=events_ms(d1, reps), plain_ms=events_ms(plain, 1))
+        return rec
+
     cfg = vt.parse_method_string(config)
     src = stage("source", lambda: DeviceChunkSource(n, d, chunk, seed=seed,
                                                     device=dev))
-    q_host = io.pad_dims(src.queries(queries), cfg.subspace_num)
+    q_raw = src.queries(queries)
+    q_host = io.pad_dims(q_raw, cfg.subspace_num)
     q_batches = [torch.as_tensor(q_host[s:s + batch], device=dev)
                  for s in range(0, queries, batch)]
     idx = vt.VAQIndex(cfg, device=dev)
@@ -144,6 +186,22 @@ def run(n: int = 100_000_000, d: int = 96, queries: int = 1024, k: int = 10,
          q_batches, gt)
     launches.update(decode_window_scan=scan_codes.decode_window_scan.launches,
                     decode_rescore=scan_codes.decode_rescore.launches)
+
+    stage("decoded_build", idx._ensure_decoded)
+    stages["decoded_build"]["resident_bytes"] = (
+        idx.decoded.numel() * idx.decoded.element_size()
+        + 4 * idx.decoded_norms.numel())
+    scan_decoded.decoded_topk_scan.launches = 0
+    tier("auto", lambda qb: idx.search(qb, k, query_batch=batch,
+                                       backend="auto"),
+         [q_raw[s:s + batch] for s in range(0, queries, batch)], gt)
+    launches["decoded_topk_scan"] = scan_decoded.decoded_topk_scan.launches
+    held = stage("d1", d1_held)
+    stages["d1"].update(held)
+    log(f"[100m] D1 against the plain scan: {stages['d1']}")
+    idx.decoded = idx.decoded_norms = None
+    if cuda:
+        torch.cuda.empty_cache()
 
     stage("decoded8_build", idx._ensure_decoded8)
     tier("decoded8", lambda qb: idx.search_device(qb, k, backend="decoded8"),

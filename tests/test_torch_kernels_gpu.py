@@ -756,6 +756,27 @@ def test_decoded_topk_scan_kernel_matches_plain(cuda, case):
     assert_final_match(d_g, i_g, d_p, i_p)
 
 
+# (n, d, nq, k) of 2.3 GB of bf16 rows: every row from 11,184,811 on starts
+# 2^31 bytes or more into them, where 32-bit offsets would wrap; the
+# deep100m-heap cell's depth, batch and k at a size a test run holds.
+D1_PAST_2_31 = (12_000_037, 96, 1024, 10)
+
+
+@pytest.mark.gpu
+def test_decoded_topk_scan_kernel_past_2_31_bytes_of_rows(cuda):
+    n, d, nq, k = D1_PAST_2_31
+    rows, norms, qp = d1_inputs("random", n, d, nq, cuda)
+    kk = max(2 * k, k + 16)
+    q = qp.to(torch.bfloat16).contiguous()
+    got = scan_decoded._lowest_split_keys(
+        scan_decoded.decoded_topk_scan(rows, norms, q, kk), kk)
+    want = scan_decoded._scan_topk(rows, norms, q.float(), kk)
+    ok, detail = kernel_check.d1_check(rows, norms, q, got, want)
+    assert ok, detail
+    # the rows past 2^31 bytes are found, not only scanned
+    assert int((got.to(torch.int64) * 2 * d >= 2**31).sum()) > 0
+
+
 @pytest.mark.gpu
 def test_decoded_topk_scan_kernel_on_an_index_after_delete(cuda):
     """The index's decoded tier on the card after ``delete``: D1 serves

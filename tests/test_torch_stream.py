@@ -427,15 +427,17 @@ def load_capacity_script():
 def test_capacity_script_runs_end_to_end_on_cpu():
     """run() at 20k × 96 on the CPU: every stage reports; refined recall
     500 ≥ 100 ≥ the int8 tier's; the probe at visit 1.0 within 0.03 of
-    the int8 tier's recall and at 0.25 no above it; the kernels' wrappers
-    took their plain versions (no launch)."""
+    the int8 tier's recall and at 0.25 no above it; ``search("auto")``
+    serves the bf16 tier, D1's CPU version picks the plain scan's
+    candidates there, and the tier is released before the probe; the
+    kernels' wrappers took their plain versions (no launch)."""
     out, idx, st, qp = load_capacity_script().run(
         n=20_000, d=96, queries=48, k=10, batch=32, chunk=3000,
         train_sample=4096, clusters=32, segments=16, visits=(1.0, 0.25),
         reps=1, device="cpu")
     s = out["stages"]
     for name in ("source", "train", "encode", "groundtruth", "codes",
-                 "decoded8_build", "decoded8", "refine100", "refine500",
+                 "decoded_build", "auto", "d1", "decoded8_build", "decoded8", "refine100", "refine500",
                  "ivf_build", "ivf_visit1.0", "ivf_visit0.25"):
         assert s[name]["wall_s"] >= 0, name
     r8 = s["decoded8"]["recall_at_k"]
@@ -446,7 +448,48 @@ def test_capacity_script_runs_end_to_end_on_cpu():
         s["ivf_visit1.0"]["recall_at_k"] + 1e-9
     assert s["codes"]["recall_at_k"] > 0.3 and s["codes"]["qps"] > 0
     assert s["ivf_build"]["cap"] == 1024 and s["ivf_build"]["spilled"] >= 0
+    assert s["auto"]["recall_at_k"] > 0.3 and s["auto"]["qps"] > 0
+    assert s["decoded_build"]["resident_bytes"] == 20_000 * (96 * 2 + 4)
+    assert s["d1"]["d1_check"] and s["d1"]["kk"] == 26
+    assert s["d1"]["d1_detail"]["queries_differing"] == 0
+    assert s["d1"]["rows_past_2_31_bytes"] == 0 and "d1_ms" not in s["d1"]
     assert idx.codes is not None and idx.decoded8 is not None
+    assert idx.decoded is None and idx.decoded_norms is None
     assert st.cap == 1024 and tuple(qp.shape) == (48, 96)
+    assert "decoded_topk_scan" in out["launches"]
     assert set(out["launches"].values()) == {0}
     assert out["resident_bytes"]["buckets"] == 32 * 1024 * (96 + 4)
+
+
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("fault", [None, "check", "no_row_past_2_31"])
+def test_deep100m_d1_entry_holds_the_capacity_runs_d1_stage(fault):
+    """chip_smoke's ``[deep100m]`` entry of D1, made from run()'s ``d1``
+    stage: bound by the products of 1024 × 100M × 96 at the bf16 peak,
+    the check's excess as its error; a failed check, or one that found no
+    row past 2^31 bytes, fails the phase."""
+    held = {"kk": 26, "d1_check": fault != "check",
+            "d1_detail": {"queries_differing": 7, "same_order": False,
+                          "max_excess_over_tol": 0.0148},
+            "rows_past_2_31_bytes": 0 if fault == "no_row_past_2_31" else 9,
+            "d1_ms": 85.0, "plain_ms": 2625.0}
+    smoke = load_chip_smoke()
+    if fault:
+        with pytest.raises(AssertionError):
+            smoke._deep100m_d1_entry(held, 100_000_000, 1024)
+        return
+    entry = smoke._deep100m_d1_entry(held, 100_000_000, 1024)
+    assert entry["name"] == "decoded_topk_scan_100m"
+    assert entry["bound_by"] == "operations"
+    assert entry["bound_ms"] == pytest.approx(2 * 1024 * 1e8 * 96 / 989e12 * 1e3)
+    assert entry["max_abs_err"] == 0.0148 and entry["queries_differing"] == 7
+    assert (entry["ms"], entry["plain_ms"], entry["library_ms"]) == \
+        (85.0, 2625.0, None)
+    assert smoke._counter_of(entry["name"]) == "decoded_topk_scan"
