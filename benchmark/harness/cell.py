@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import math
+import statistics
 import sys
 import time
 
@@ -26,6 +27,8 @@ TRACE_SECONDS = 3.0
 # answers judged a run
 SAMPLE = 2048
 JAX_NAMES = ("jax", "jaxlib", "flax", "vaq_tpu")
+# repeats of the host's calibration, whose median is recorded
+CALIB_REPEATS = 5
 
 
 def log(msg: str) -> None:
@@ -37,6 +40,28 @@ def forbidden_modules() -> list:
     or the JAX package's, compared whole."""
     return sorted({m for m in list(sys.modules)
                    if m.split(".")[0] in JAX_NAMES})
+
+
+def host_calibration() -> dict:
+    """Seconds that a fixed pure-Python loop and a fixed NumPy pass (a sort
+    and a running sum of 2^20 doubles, one thread) take on this host, the
+    median of ``CALIB_REPEATS`` each. The work is the same in every run and
+    nothing compares it: it is recorded beside a run's readings, so that a
+    later look at a spread of runs can tell the host's drift from the
+    program's."""
+    data = np.random.default_rng(0).standard_normal(1 << 20)
+    py, nps = [], []
+    for _ in range(CALIB_REPEATS):
+        t = time.perf_counter()
+        acc = 0
+        for i in range(300_000):
+            acc += i * i % 7
+        py.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        np.cumsum(np.sort(data))
+        nps.append(time.perf_counter() - t)
+    return {"python_s": statistics.median(py),
+            "numpy_s": statistics.median(nps)}
 
 
 def _sync(dev: torch.device) -> None:
@@ -160,6 +185,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device="cuda",
     notes["reference_s"] = time.perf_counter() - t_ref
     notes.update(info)
     correct, table = check.verdict(nums, cell.limits)
+    # outside set-up and the window, after the check
+    notes["host_calib"] = host_calibration()
 
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": (torch.cuda.get_device_name(dev)
@@ -195,7 +222,7 @@ def report(out: dict) -> None:
     log("window: " + ", ".join(f"{k} {v}" for k, v in win.items()))
     for key in ("build_s", "reference_s", "answers_checked", "recall_at_k",
                 "adc_recall_ceiling", "bits", "recon_error", "clusters",
-                "bad_state_by_kind"):
+                "bad_state_by_kind", "host_calib"):
         if key in notes:
             log(f"{key} {notes[key]}")
     for name, m in out["line"]["metrics"].items():

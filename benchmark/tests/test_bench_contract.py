@@ -103,3 +103,15 @@ def test_metrics():
         assert "setup_s" in mine and len(mine) >= 2
         assert any(_reports(m, c) and _reports(e2e[m["moves"]], c)
                    for m in b["per_layer"])
+
+
+def test_each_rate_names_one_cell():
+    # a rate on the host's clock is judged against its cells' spread, and
+    # cells' spreads differ tenfold: one name a cell
+    b = _bench()
+    cells = {w["name"] for w in b["workloads"]}
+    rates = [m for m in b["end_to_end"] if m["source"] == "host_clock"
+             and m["name"].split(".")[0] == "qps"]
+    assert rates
+    for m in rates:
+        assert len(m.get("workloads", cells)) == 1, m["name"]

@@ -1,8 +1,10 @@
 """The ``deep100m-heap.batch`` cell at a size a CPU test run holds (its
 method, ``min5max8`` over 32 subspaces of 96 dimensions, on 12,288 rows):
 the port agrees with the plain reference, a broken timed path comes out not
-correct, and the cell's two readers read the number their inputs give."""
+correct, ``qps.deep100m`` is the window's rate, and the cell's readers read
+the number their inputs give."""
 
+import json
 import math
 
 import pytest
@@ -20,11 +22,25 @@ def _run(variant=None):
                              variant=variant)
 
 
-def test_the_cell_at_test_size_agrees_with_the_reference():
+@pytest.fixture(scope="module")
+def sound():
+    return _run()
+
+
+def test_the_cell_names_its_own_rate_and_readers():
+    c = tiny.cell(CELL)
+    assert [m.name for m in c.end_to_end] == ["qps.deep100m", "peak_gib",
+                                             "setup_s"]
+    assert {m.name for m in c.per_layer} == {
+        "decoded.scores_roofline", "decoded.kept_per_query",
+        "device.idle_pct.deep100m", "api.idle_ms.deep100m"}
+
+
+def test_the_cell_at_test_size_agrees_with_the_reference(sound):
     c = tiny.cell(CELL)
     assert c.config["d"] == 96 and c.config["method"] == \
         "VAQ256m32min5max8var1,HEAP" and c.config["probe"] is None
-    out = _run()
+    out = sound
     nums, lim = out["numbers"], c.limits["limits"]
     for name in ("failed", "bad_answers", "bad_state", "rows_remade"):
         assert nums[name] == 0, (name, nums)
@@ -32,7 +48,24 @@ def test_the_cell_at_test_size_agrees_with_the_reference():
         assert nums[name] <= lim[name], (name, nums)
     line = out["line"]
     assert line["correct"] is True and line["attempted"] > 0
-    assert set(line["metrics"]) == {"qps", "peak_gib", "setup_s"}
+    assert set(line["metrics"]) == {"qps.deep100m", "peak_gib", "setup_s"}
+
+
+def test_the_cells_rate_is_the_windows_rate(sound, capsys):
+    win = sound["notes"]["window"]
+    got = sound["line"]["metrics"]["qps.deep100m"]
+    assert got == {"value": win["qps"], "unit": "queries/s"}
+    assert win["qps"] == win["queries"] / win["seconds"] > 0
+    # the host's calibration is in the notes alone, printed before the
+    # checks, which stay the last lines
+    assert set(sound["notes"]["host_calib"]) == {"python_s", "numpy_s"}
+    assert "host_calib" not in json.dumps(sound["line"])
+    cell_mod.report(sound)
+    err = capsys.readouterr().err.splitlines()
+    calib = next(i for i, x in enumerate(err) if x.startswith("host_calib"))
+    checks = [i for i, x in enumerate(err) if x.startswith("check ")]
+    assert checks and calib < min(checks)
+    assert checks == list(range(len(err) - len(checks), len(err)))
 
 
 @pytest.mark.parametrize("fault", ["fault:altered", "fault:untrained"])

@@ -8,7 +8,7 @@ import math
 import pytest
 import torch
 
-from benchmark.harness import spans, spec, trace
+from benchmark.harness import peaks, spans, spec, trace
 
 BATCH_US = 500.0
 
@@ -63,8 +63,16 @@ def test_decoded_stages_split_the_scan_by_its_nested_scores():
     assert read("decoded.scores_ms", ctx) == pytest.approx(0.110, abs=1e-12)
     assert read("decoded.select_ms", ctx) == pytest.approx(0.155, abs=1e-12)
     # the stages and the two copies make up every device op of a batch
-    busy_ms = read("decoded.batch_device_ms", ctx)
+    busy_ms = 1e3 * trace.busy_s(ctx["trace"]) / 2
     assert busy_ms == pytest.approx(0.110 + 0.155 + 0.020, abs=1e-12)
+
+
+@pytest.mark.parametrize("cell", ["decoded", "deep100m"])
+def test_api_idle_of_each_decoded_cell_reads_the_same_trace(cell, capsys):
+    got = read(f"api.idle_ms.{cell}", ctx_of(decoded_trace()))
+    assert got == pytest.approx(0.165, abs=1e-12)
+    assert f"api.idle_ms.{cell} by span, ms a batch: decoded.scores " \
+        "0.0850" in capsys.readouterr().err
 
 
 def test_api_idle_splits_program_from_harness(capsys):
@@ -90,8 +98,9 @@ def test_api_idle_splits_program_from_harness(capsys):
 
 @pytest.mark.parametrize("name", ["decoded.scores_ms", "decoded.select_ms",
                                   "api.idle_ms.decoded", "api.idle_ms.codes",
-                                  "api.idle_ms.probe",
-                                  "codes.scan_roofline"])
+                                  "api.idle_ms.probe", "api.idle_ms.deep100m",
+                                  "codes.scan_roofline",
+                                  "decoded.scores_roofline"])
 def test_readers_read_nothing_without_the_spans(name):
     class Index:
         n_rows, total_dim = 1 << 20, 128
@@ -129,13 +138,11 @@ def test_codes_scan_roofline_reads_the_stage_with_k1s_bound():
         n_rows, total_dim = n, dim
 
     ctx = ctx_of(tr, batches, index=Index(), traffic={"query_batch": nq})
-    bound = spec.load_module("layer_metrics",
-                             "decode_window_scan_roofline").bound_s(nq, n,
-                                                                    dim)
-    want = 100.0 * bound / 1200e-6
+    want = 100.0 * peaks.scan_bound_s(nq, n, dim) / 1200e-6
     assert math.isclose(read("codes.scan_roofline", ctx), want,
                         rel_tol=1e-12)
-    assert math.isclose(read("decode_window_scan_roofline", ctx), want,
+    # 2 · 1024 · 2^20 · 128 bf16 operations at 989 TFLOP/s, spelt out
+    assert math.isclose(want, 100.0 * 2 * nq * n * dim / 989e12 / 1200e-6,
                         rel_tol=1e-12)
 
 

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import datagen, stats, trace
+from benchmark.harness import cell as cell_mod
+from benchmark.harness import datagen, peaks, stats, trace
 
 HERE = Path(__file__).resolve().parent
 
@@ -89,24 +90,32 @@ def test_window_layer_readers_on_a_made_up_trace():
     ctx = {"trace": tr, "window": {"batches": 2}}
     assert _reader_module("device.idle_pct.decoded").read(ctx) == \
         pytest.approx(58.0)
-    assert _reader_module("decoded.batch_device_ms").read(ctx) == \
-        pytest.approx(42e-6 * 1e3 / 2)
     assert _reader_module("ivf.merge_ms").read(ctx) == pytest.approx(1e-2)
-    for cell in ("codes", "probe"):
+    for cell in ("codes", "probe", "deep100m"):
         assert _reader_module(f"device.idle_pct.{cell}").read(ctx) == \
             pytest.approx(58.0)
     # a reader that finds nothing to read returns nothing, never 0
     empty = trace.Trace([], [], [], 0.0, 100.0)
     assert _reader_module("device.idle_pct.probe").read(
         {"trace": empty}) is None
-    assert _reader_module("decode_window_scan_roofline").read(
-        {"trace": empty, "window": {"batches": 3}}) is None
+    for name in ("codes.scan_roofline", "decoded.scores_roofline"):
+        assert _reader_module(name).read(
+            {"trace": empty, "window": {"batches": 3}}) is None
 
 
 def test_k1_bound_reproduces_the_known_figure():
-    k1 = _reader_module("decode_window_scan_roofline")
-    assert k1.bound_s(1024, 1_000_000, 128) * 1e3 == pytest.approx(
+    # K1's and D1's bound: 0.2651 ms at 1024 × 1M × 128, 9.9397 at the
+    # DEEP cell's 1024 × 50M × 96
+    assert peaks.scan_bound_s(1024, 1_000_000, 128) * 1e3 == pytest.approx(
         0.2651, abs=5e-5)
+    assert peaks.scan_bound_s(1024, 50_000_000, 96) * 1e3 == pytest.approx(
+        9.9397, abs=5e-5)
+
+
+def test_host_calibration_times_a_fixed_loop():
+    got = cell_mod.host_calibration()
+    assert set(got) == {"python_s", "numpy_s"}
+    assert all(0 < v < 5 for v in got.values()), got
 
 
 def test_k5_bytes_count_occupied_buckets_and_dispatched_entries():
